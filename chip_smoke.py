@@ -1,0 +1,392 @@
+"""Smoke test of the torch port on one CUDA card: python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with a CUDA card and nvcc.
+In order, any failure ending the run with a non-zero exit and no ``ok``
+line:
+
+  1. the card (nvidia-smi name and power limit), torch / CUDA versions, and
+     whether the native host library loaded;
+  2. build every kernel from hiphase_tpu_torch/csrc with nvcc (sm_90a);
+  3. hold each kernel against its plain PyTorch version on the card, with
+     exact integer equality, on seeded inputs: one full tile at
+     (B, R, W) = (64, 128, 1024), W = 64 and W = 2560, and the (16, 512)
+     and (8, 1024) slot buckets; median device times of both (CUDA
+     events);
+  4. the golden end-to-end dataset (tests/test_e2e_golden.py) through
+     ``hiphase_tpu_torch.cli.main(... --engine cuda)``: its sha256 must be
+     the committed one;
+  5. the local-mode benchmark configuration (30 Mb, 30x, 15 kb reads,
+     --disable-global-realignment, default widths) with --engine cuda,
+     record-identical to --engine native (astar when the native library
+     does not load), two host→device copies per batch, every kernel
+     launched. Without the native host library the genome is cut to
+     BENCH_MB_PURE_PYTHON, and the cut is printed.
+
+The last line of standard output is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# (B, R, W) of step 3; the first is the main path's production shape
+KERNEL_SHAPES = ((64, 128, 1024), (64, 128, 64), (64, 128, 2560),
+                 (16, 512, 1024), (8, 1024, 1024))
+TILE = 128
+TIMING_REPS = 20
+# step 5's genome size: bench.py's 30 Mb, cut when the native host library
+# does not load (block generation, allele assignment and the reference
+# engine then run in pure Python, about 30 s per Mb on an 8-core host)
+BENCH_MB = 30
+BENCH_MB_PURE_PYTHON = 6
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# step 3: kernels against their plain versions
+
+def make_inputs(B, R, T, seed, device):
+    """Seeded packed inputs [B, R, T+1] and skip [B, T] on ``device``."""
+    import numpy as np
+    import torch
+
+    from hiphase_tpu_torch.phasing.beam import PACK_PAD, pack_inputs
+    rng = np.random.default_rng(seed)
+    alleles = rng.choice(4, size=(B, R, T), p=[0.45, 0.45, 0.04, 0.06])
+    quals = rng.integers(10, 80, size=(B, R, T)).astype(np.int32)
+    quals[alleles >= 2] = 0
+    resets = rng.random((B, R, T)) < 0.03
+    skip = rng.random((B, T)) < 0.05
+    packed = np.pad(pack_inputs(alleles, quals, resets),
+                    ((0, 0), (0, 0), (0, 1)), constant_values=PACK_PAD)
+    return (torch.from_numpy(packed).to(device),
+            torch.from_numpy(skip).to(device))
+
+
+def median_ms(fn, reps=TIMING_REPS) -> float:
+    """Median device time of one call of ``fn``, in ms. Every timed call
+    and its events are queued behind a GPU sleep longer than the host
+    needs to enqueue them, so the events measure the device's work and not
+    the host's launch overhead (which the end-to-end run sees separately)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(int(4e9 * host_s * reps) + 10_000_000)  # ≥ 2x at 2 GHz
+    events[0].record()
+    for i in range(reps):
+        fn()
+        events[i + 1].record()
+    events[-1].synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return times[reps // 2]
+
+
+def max_abs_err(got, want) -> int:
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype {g.shape} {g.dtype} != "
+                                 f"{w.shape} {w.dtype}")
+        err = max(err, int((g.long() - w.long()).abs().max().item()))
+    return err
+
+
+def check_kernels(device) -> dict:
+    """Every kernel against its plain version at every shape; returns, per
+    kernel, the largest error and the times at the production shape."""
+    import torch
+
+    from hiphase_tpu_torch import kernels
+    from hiphase_tpu_torch.phasing import beam
+
+    def clone(ts):
+        return tuple(t.clone() for t in ts)
+
+    def plain_chain(state, packed, skip, W):
+        delta, cost, hets, valid = clone(state)
+        B, _, R = delta.shape
+        V = skip.shape[1]
+        traces = (torch.empty((V, B, W), dtype=torch.int16, device=device),
+                  torch.empty((V, B, W), dtype=torch.int8, device=device),
+                  torch.empty((V, B), dtype=torch.int32, device=device),
+                  torch.empty((V, B), dtype=torch.int32, device=device))
+        scratch = (torch.empty((B, W), dtype=torch.int32, device=device),
+                   torch.empty((B, R), dtype=torch.int32, device=device),
+                   torch.empty((B, R), dtype=torch.int32, device=device))
+        for col in range(V):
+            beam.beam_select_plain(delta, cost, hets, valid, packed, skip,
+                                   col, traces, scratch)
+            delta = beam.permute_update_plain(
+                delta, traces[0][col], *scratch, out=torch.empty_like(delta))
+        return (delta, cost, hets, valid), traces
+
+    results = {name: {"max_abs_err": 0} for name in kernels.KERNELS}
+    for i, (B, R, W) in enumerate(KERNEL_SHAPES):
+        T = TILE
+        packed, skip = make_inputs(B, R, T, seed=100 + i, device=device)
+        fresh = beam.beam_init_device(B, R, W, device)
+        # whole tile: kernels vs plain, from the same fresh state
+        k_state, k_tr = beam.tiles_forward_packed(clone(fresh), packed, skip,
+                                                  W, T)
+        p_state, p_tr = plain_chain(fresh, packed, skip, W)
+        chain_err = max_abs_err(k_state + k_tr, p_state + p_tr)
+
+        # beam_select alone at the state before the tile's last column
+        pre, _ = plain_chain(fresh, packed[:, :, :T], skip[:, :T - 1], W)
+        col = T - 1
+        traces = tuple(t.clone() for t in p_tr)
+        scratch = (torch.empty((B, W), dtype=torch.int32, device=device),
+                   torch.empty((B, R), dtype=torch.int32, device=device),
+                   torch.empty((B, R), dtype=torch.int32, device=device))
+        k_in, p_in = clone(pre), clone(pre)
+        k_out, p_out = clone(traces), clone(traces)
+        k_scr, p_scr = clone(scratch), clone(scratch)
+        beam.beam_select(*k_in, packed, skip, col, k_out, k_scr)
+        beam.beam_select_plain(*p_in, packed, skip, col, p_out, p_scr)
+        sel_err = max_abs_err(k_in[1:] + k_out + k_scr,
+                              p_in[1:] + p_out + p_scr)
+
+        # permute_update alone on beam_select's outputs
+        idx = p_out[0][col]
+        k_perm = beam.permute_update(pre[0], idx, *p_scr,
+                                     out=torch.empty_like(pre[0]))
+        p_perm = beam.permute_update_plain(pre[0], idx, *p_scr,
+                                           out=torch.empty_like(pre[0]))
+        perm_err = max_abs_err((k_perm,), (p_perm,))
+
+        # backtrace over the tile's trace
+        slot = torch.zeros(B, dtype=torch.int32, device=device)
+        bt_err = max_abs_err(
+            beam.backtrace_tile(slot, p_tr[0], p_tr[1], skip),
+            beam.backtrace_plain(slot, p_tr[0], p_tr[1], skip))
+        torch.cuda.synchronize()
+
+        errs = {"beam_select": max(sel_err, chain_err),
+                "permute_update": max(perm_err, chain_err),
+                "backtrace": bt_err}
+        line = {"B": B, "R": R, "W": W, "T": T, "chain_err": chain_err,
+                **{f"{k}_err": v for k, v in errs.items()}}
+        for name, err in errs.items():
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               err)
+
+        def sel(fn):
+            s_in, s_out, s_scr = clone(pre), clone(traces), clone(scratch)
+            return lambda: fn(*s_in, packed, skip, col, s_out, s_scr)
+
+        out = torch.empty_like(pre[0])
+        timings = {
+            "beam_select": (sel(beam.beam_select),
+                            sel(beam.beam_select_plain)),
+            "permute_update": (
+                lambda: beam.permute_update(pre[0], idx, *p_scr, out=out),
+                lambda: beam.permute_update_plain(pre[0], idx, *p_scr,
+                                                  out=out)),
+            "backtrace": (
+                lambda: beam.backtrace_tile(slot, p_tr[0], p_tr[1], skip),
+                lambda: beam.backtrace_plain(slot, p_tr[0], p_tr[1], skip)),
+        }
+        counts = kernels.launch_counts()
+        for name, (kfn, pfn) in timings.items():
+            ms, plain_ms = median_ms(kfn), median_ms(pfn)
+            line[f"{name}_ms"] = ms
+            line[f"{name}_plain_ms"] = plain_ms
+            if i == 0:
+                results[name].update(ms=ms, plain_ms=plain_ms)
+        if kernels.launch_counts() == counts:
+            raise AssertionError("timing launched no kernel")
+        log("kernel check " + json.dumps(line))
+        if any(errs.values()) or chain_err:
+            raise AssertionError(f"kernel disagrees with its plain version "
+                                 f"at (B, R, W) = ({B}, {R}, {W}): {errs}")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# steps 4 and 5: the main path through the CLI
+
+def run_cli(argv):
+    from hiphase_tpu_torch import cli
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+        raise AssertionError(f"cli exited non-zero: {argv}")
+    return time.perf_counter() - t0, dict(cli.LAST_RUN_STATS)
+
+
+def load_golden_test():
+    """tests/test_e2e_golden.py, loaded by path: an installed package named
+    ``tests`` would shadow the repository's tests directory."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "e2e_golden", os.path.join(HERE, "tests", "test_e2e_golden.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_golden(workdir: str) -> dict:
+    from hiphase_tpu.utils.simulate import build_benchmark_dataset
+    golden = load_golden_test()
+    meta = build_benchmark_dataset(os.path.join(workdir, "golden"),
+                                   **golden.DATASET_KW)
+    out = [os.path.join(workdir, f"golden.{x}")
+           for x in ("vcf.gz", "bam", "blocks.tsv")]
+    secs, stats = run_cli(["--bam", meta["bam"], "--vcf", meta["vcf"],
+                           "--reference", meta["fasta"],
+                           "--output-vcf", out[0], "--output-bam", out[1],
+                           "--blocks-file", out[2], "--engine", "cuda"])
+    digest = golden._digest(golden._normalize(*out))
+    want = json.loads(golden.GOLDEN.read_text())["sha256"]
+    log(f"golden: sha256 {digest} (committed {want}), {secs:.2f} s, "
+        f"{json.dumps(stats)}")
+    if digest != want:
+        raise AssertionError("golden sha256 differs from the committed one")
+    return stats
+
+
+def vcf_records(path):
+    from hiphase_tpu.io.vcf import VcfReader
+    return [r.serialize() for r in VcfReader(path)]
+
+
+def check_local_bench(workdir: str, host_engine: str, total_mb: int) -> dict:
+    from hiphase_tpu.utils.simulate import build_benchmark_dataset
+    from hiphase_tpu_torch import kernels
+    t0 = time.perf_counter()
+    meta = build_benchmark_dataset(
+        os.path.join(workdir, "bench"), total_mb=total_mb, coverage=30,
+        read_length=15_000, seed=0, het_spacing=800, error_rate=0.01,
+        block_kb=250, io_threads=2)
+    log(f"local bench dataset: {total_mb} Mb, {meta['n_het']} hets, "
+        f"{meta['n_reads']} reads, built in {time.perf_counter() - t0:.1f} s")
+
+    def argv(engine, threads):
+        return ["--bam", meta["bam"], "--vcf", meta["vcf"],
+                "--reference", meta["fasta"], "--output-vcf",
+                os.path.join(workdir, f"bench.{engine}.vcf.gz"),
+                "--blocks-file", os.path.join(workdir,
+                                              f"bench.{engine}.tsv"),
+                "--engine", engine, "--threads", str(threads),
+                "--disable-global-realignment"]
+
+    kernels.reset_launch_counts()
+    cuda_s, stats = run_cli(argv("cuda", 2))   # bench_e2e.py's --threads 2
+    launches = kernels.launch_counts()
+    # the reference engine's thread count does not change its output
+    host_s, host_stats = run_cli(argv(host_engine,
+                                      min(os.cpu_count() or 2, 8)))
+    same_vcf = (vcf_records(os.path.join(workdir, "bench.cuda.vcf.gz"))
+                == vcf_records(os.path.join(workdir,
+                                            f"bench.{host_engine}.vcf.gz")))
+    with open(os.path.join(workdir, "bench.cuda.tsv")) as a, \
+            open(os.path.join(workdir, f"bench.{host_engine}.tsv")) as b:
+        same_blocks = a.read() == b.read()
+    summary = {
+        "total_mb": total_mb, "n_het": meta["n_het"],
+        "cuda_seconds": cuda_s, "hets_per_sec": meta["n_het"] / cuda_s,
+        f"{host_engine}_seconds": host_s,
+        f"{host_engine}_hets_per_sec": meta["n_het"] / host_s,
+        "device_batches": stats.get("device_batches"),
+        "transfers_per_batch": stats.get("transfers_per_batch"),
+        "kernel_launches": launches,
+        "stage_seconds": stats.get("stage_seconds"),
+        "host_stage_seconds": host_stats.get("stage_seconds"),
+        "record_identical": same_vcf and same_blocks}
+    log("local bench " + json.dumps(summary))
+    if not same_vcf or not same_blocks:
+        raise AssertionError(f"--engine cuda output differs from "
+                             f"--engine {host_engine}")
+    if stats.get("transfers_per_batch") != 2.0:
+        raise AssertionError("expected two host→device copies per batch")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    return launches
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "hiphase_tpu_torch")):
+        print("chip_smoke.py must run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
+              "is False", file=sys.stderr)
+        return 3
+    sys.path.insert(0, HERE)
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    card = nvidia_smi()
+
+    # 1. environment
+    from hiphase_tpu.io import native
+    host_engine = "native" if native.available() else "astar"
+    log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
+        f"native host library loaded: {native.available()}")
+
+    # 2. build
+    from hiphase_tpu_torch import kernels
+    t0 = time.perf_counter()
+    built = kernels.build_all()
+    log(f"built {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
+    for name, b in built.items():
+        info = [x.strip() for x in b.log.splitlines()
+                if "registers" in x or "spill" in x]
+        log(f"  {name}: {b.library.name}; " + " | ".join(info))
+
+    # 3. kernels against their plain versions
+    checks = check_kernels(device)
+
+    with tempfile.TemporaryDirectory(prefix="hiphase_smoke_") as workdir:
+        # 4. golden dataset
+        check_golden(workdir)
+        # 5. the local-mode benchmark configuration
+        total_mb = BENCH_MB if native.available() else BENCH_MB_PURE_PYTHON
+        if total_mb != BENCH_MB:
+            log(f"local bench cut: total_mb {BENCH_MB} -> {total_mb}, "
+                f"because the native host library did not load and the "
+                f"host path runs in pure Python")
+        launches = check_local_bench(workdir, host_engine, total_mb)
+
+    table = [{"name": name, "route": "cuda",
+              "source": os.path.relpath(k.source, HERE),
+              "replaces": k.replaces, "launches": launches[name],
+              **checks[name]} for name, k in kernels.KERNELS.items()]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": table}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,417 @@
+"""CLI of the torch port — ``python -m hiphase_tpu_torch.cli``.
+
+The flag surface is ``hiphase_tpu.cli``'s, with ``--engine
+{auto,cuda,native,astar}``: ``cuda`` is the batched device engine on the
+hand-written kernels. The pipeline is the JAX package's single-process
+path: streaming block generation, host prepare on a thread pool, the
+solver, ``finalize_block``, and the ordered writers on their own thread.
+
+Differences from ``hiphase_tpu.cli``, all deliberate:
+  * the device engine is not wrapped in a host fallback: a device or kernel
+    error ends the run with that error;
+  * ``--engine auto`` resolves before the run from what the machine has
+    (see `parallel.engine_select`) and never switches mid-run;
+  * ``--wfa-engine device`` is refused (its kernel is not ported yet), and
+    multi-host runs are not supported;
+  * `main` raises on error instead of returning 1.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import sys
+import threading
+import time
+
+import torch
+
+from hiphase_tpu.cli import (
+    U64_MAX, check_settings, global_realignment_config)
+from hiphase_tpu.cli import build_parser as reference_parser
+from hiphase_tpu.version import full_version
+from hiphase_tpu_torch import kernels
+from hiphase_tpu_torch.parallel.engine_select import ENGINES, choose_engine
+
+logger = logging.getLogger("hiphase_tpu_torch")
+
+# telemetry of the last run in this process (benches, tests, chip_smoke):
+# engine, device, solver and device-transfer counters, kernel launches
+LAST_RUN_STATS: dict = {}
+
+
+def build_parser():
+    """``hiphase_tpu.cli``'s flag surface with this package's engines."""
+    p = reference_parser()
+    p.prog = "hiphase-tpu-torch"
+    p.description = ("Joint phaser for small, structural and tandem-repeat "
+                     "variants from HiFi BAMs (PyTorch/CUDA device engine)")
+    engine = next(a for a in p._actions if a.dest == "engine")
+    engine.choices = ENGINES
+    engine.help = ("Phasing engine: 'cuda' = batched device beam engine on "
+                   "the CUDA kernels; 'native' = C++ host beam engine; "
+                   "'astar' = host A* oracle; 'auto' (default) = cuda when "
+                   "a CUDA device is present, else native, else astar. All "
+                   "engines produce identical output.")
+    return p
+
+
+def main(argv=None, device: torch.device | None = None) -> int:
+    """Run the phaser; returns 0 or raises.
+
+    ``device`` is where the cuda engine runs: None means the current CUDA
+    device (an error when there is none); ``torch.device("cpu")`` runs the
+    kernels' plain PyTorch versions instead.
+    """
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose >= 1 else logging.INFO,
+        format="[%(asctime)s.%(msecs)03d %(levelname)s %(name)s] %(message)s",
+        datefmt="%Y-%m-%d %H:%M:%S")
+    logger.info("hiphase-tpu-torch version %s", full_version())
+    check_settings(args)
+    if args.wfa_engine == "device":
+        raise SystemExit("--wfa-engine device is not available in "
+                         "hiphase_tpu_torch yet (its kernel is not ported); "
+                         "use --wfa-engine host")
+    LAST_RUN_STATS.clear()
+
+    from hiphase_tpu.core.reference_genome import ReferenceGenome
+    from hiphase_tpu.io.bam import set_cram_reference
+    from hiphase_tpu.io.vcf import get_vcf_samples
+    from hiphase_tpu.phasing.block_gen import (
+        MultiPhaseBlockIterator, PhaseBlockIterator, get_sample_bams)
+    from hiphase_tpu.phasing.phaser import (
+        create_unphased_result, prepare_block, solve_block)
+    from hiphase_tpu.writers.bam_writer import OrderedBamWriter
+    from hiphase_tpu.writers.block_stats import BlockStatsCollector
+    from hiphase_tpu.writers.haplotag_writer import HaplotagWriter
+    from hiphase_tpu.writers.phase_stats import StatsWriter
+    from hiphase_tpu.writers.vcf_writer import OrderedVcfWriter
+
+    command_line = " ".join(sys.argv if argv is None
+                            else ["hiphase-tpu-torch"] + list(argv))
+
+    sample_names = list(args.sample_names)
+    if not sample_names:
+        all_names = get_vcf_samples(args.vcfs[0])
+        if len(all_names) > 1:
+            logger.warning("Multi-sample VCF detected, but sample name was "
+                           "not provided. Assuming name is %r.", all_names[0])
+        sample_names.append(all_names[0])
+    if args.ignore_read_groups and len(sample_names) > 1:
+        raise SystemExit("--ignore-read-groups cannot be used with multiple "
+                         "sample names")
+
+    engine = choose_engine(args.engine)
+    solver = None
+    if engine == "cuda":
+        from hiphase_tpu_torch.device import resolve_device
+        from hiphase_tpu_torch.parallel.orchestrator import BatchedDeviceSolver
+        dev = resolve_device(device)
+        logger.info("Device engine on %s", _device_name(dev))
+        solver = BatchedDeviceSolver(
+            dev, beam_width=args.beam_width, batch_size=args.batch_size,
+            min_queue_size=args.phase_min_queue_size,
+            queue_increment=args.phase_queue_increment,
+            compute_estimates=args.stats_file is not None)
+    elif engine == "native":
+        from hiphase_tpu_torch.phasing.native_beam import NativeBeamSolver
+        solver = NativeBeamSolver(
+            beam_width=args.beam_width, batch_size=args.batch_size,
+            min_queue_size=args.phase_min_queue_size,
+            queue_increment=args.phase_queue_increment, threads=args.threads,
+            compute_estimates=args.stats_file is not None)
+    launches_before = kernels.launch_counts()
+
+    logger.info("Loading reference genome...")
+    reference_genome = ReferenceGenome.from_fasta(args.reference)
+    set_cram_reference(reference_genome)
+
+    # per-sample BAM assignment + block iterators (ref: main.rs:77-141)
+    sample_to_bams: dict[str, list[str]] = {}
+    sample_to_output_bams: dict[str, list[str]] = {}
+    block_iterators = []
+    for sample_name in sample_names:
+        if args.ignore_read_groups:
+            sample_bams = list(args.bams)
+            bam_indices = list(range(len(args.bams)))
+        else:
+            sample_bams = get_sample_bams(args.bams, sample_name)
+            bam_indices = [args.bams.index(b) for b in sample_bams]
+        sample_to_bams[sample_name] = sample_bams
+        if args.output_bams:
+            sample_to_output_bams[sample_name] = [
+                args.output_bams[i] for i in bam_indices]
+        block_iterators.append(PhaseBlockIterator(
+            args.vcfs, sample_bams, sample_name,
+            min_quality=args.min_variant_quality,
+            min_mapq=args.min_mapping_quality,
+            min_spanning_reads=args.min_spanning_reads,
+            allow_supplemental_joins=not args.disable_supplemental_joins))
+    block_iterator = MultiPhaseBlockIterator(block_iterators)
+
+    # writers (ref: main.rs:153-234)
+    vcf_writer = OrderedVcfWriter(
+        args.vcfs, args.output_vcfs, args.min_variant_quality, sample_names,
+        program_version=full_version(), command_line=command_line,
+        csi=args.csi_index, io_threads=args.io_threads)
+    bam_writers: dict[str, OrderedBamWriter] = {}
+    for sample_name in sample_names if args.output_bams else []:
+        bam_writers[sample_name] = OrderedBamWriter(
+            sample_name, sample_to_bams[sample_name],
+            sample_to_output_bams[sample_name],
+            program_version=full_version(), command_line=command_line,
+            io_threads=args.io_threads)
+    stats_writer = StatsWriter(args.stats_file) if args.stats_file else None
+    haplotag_writer = (HaplotagWriter(args.haplotag_file)
+                       if args.haplotag_file else None)
+    block_collector = BlockStatsCollector()
+
+    max_chrom_len = max((reference_genome.contig_length(c)
+                         for c in reference_genome.contig_keys()), default=0)
+    if max_chrom_len >= 2**29 - 1 and not args.csi_index:
+        raise SystemExit("Output files will require .csi indexing; use "
+                         "--csi-index to enable")
+
+    global_config = global_realignment_config(args)
+    debug_run = args.skip > 0 or args.take != U64_MAX
+
+    start_time = time.time()
+    results_received = 0
+    total_variants = 0
+    # cumulative per-stage busy time (thread-summed; stages overlap)
+    stage_s = {"block_gen": 0.0, "prepare": 0.0, "solve": 0.0,
+               "writer": 0.0}
+    stage_lock = threading.Lock()
+    logger.info("Phase block generation starting...")
+
+    def should_solve(block):
+        return (not block.unphased_block
+                and (args.phase_singletons or block.num_variants > 1)
+                and block.num_variants > 0)
+
+    def write_result(phase_result, haplotag_result):
+        nonlocal results_received, total_variants
+        t0 = time.perf_counter()
+        total_variants += phase_result.phase_block.num_variants
+        results_received += 1
+        if stats_writer is not None:
+            stats_writer.write_stats(phase_result)
+        block_collector.add_result(phase_result)
+        for sub_block in phase_result.sub_phase_blocks:
+            block_collector.add_block(sub_block)
+        if haplotag_writer is not None:
+            haplotag_writer.write_block(haplotag_result)
+        vcf_writer.write_phase_block(phase_result)
+        this_sample = phase_result.phase_block.sample_name
+        for sample_name, writer in bam_writers.items():
+            if sample_name == this_sample:
+                writer.write_phase_block(haplotag_result)
+            else:
+                writer.write_dummy_block(phase_result.phase_block.block_index)
+        stage_s["writer"] += time.perf_counter() - t0
+        if results_received % 100 == 0:
+            elapsed = time.time() - start_time
+            logger.info("Received results for %d phase blocks: %.4f "
+                        "blocks/sec, %.4f hets/sec, writer waiting on "
+                        "block %d", results_received,
+                        results_received / elapsed, total_variants / elapsed,
+                        vcf_writer.get_wait_block())
+
+    # the ordered writers drain on their own thread, so the VCF/BAM rewrite
+    # overlaps block gen + prepare + solve; bounded queue for backpressure,
+    # the first writer error is raised back in the producer
+    write_queue: queue.Queue = queue.Queue(maxsize=256)
+    writer_errors: list[BaseException] = []
+
+    def writer_loop():
+        while True:
+            item = write_queue.get()
+            if item is None:
+                return
+            try:
+                write_result(*item)
+            except BaseException as e:  # re-raised by emit / finish_writes
+                writer_errors.append(e)
+                while write_queue.get() is not None:
+                    pass
+                return
+
+    writer_thread = threading.Thread(target=writer_loop, daemon=True,
+                                     name="ordered-writers")
+    writer_thread.start()
+
+    def emit(phase_result, haplotag_result):
+        if writer_errors:
+            raise writer_errors[0]
+        write_queue.put((phase_result, haplotag_result))
+
+    def windowed(iterator):
+        it = iter(iterator)
+        i = 0
+        while True:
+            t0 = time.perf_counter()
+            block = next(it, None)
+            stage_s["block_gen"] += time.perf_counter() - t0
+            if block is None or i >= args.skip + args.take:
+                return
+            if i >= args.skip:
+                yield block
+            i += 1
+
+    try:
+        if solver is not None:
+            from hiphase_tpu_torch.parallel.orchestrator import iter_prepared
+
+            def prepare_fn(block):
+                t0 = time.perf_counter()
+                try:
+                    return prepare_block(
+                        block, args.vcfs, sample_to_bams[block.sample_name],
+                        reference_genome, args.reference_buffer,
+                        args.min_matched_alleles, args.min_mapping_quality,
+                        global_config)
+                finally:
+                    dt = time.perf_counter() - t0
+                    with stage_lock:  # float += is not atomic across threads
+                        stage_s["prepare"] += dt
+
+            for kind, item in iter_prepared(
+                    windowed(block_iterator), prepare_fn,
+                    lambda b: "solve" if should_solve(b) else "unphased",
+                    threads=args.threads):
+                if kind == "unphased":
+                    emit(*create_unphased_result(item))
+                    continue
+                t0 = time.perf_counter()
+                results = solver.submit(item)
+                stage_s["solve"] += time.perf_counter() - t0
+                for pr, hr in results:
+                    emit(pr, hr)
+            t0 = time.perf_counter()
+            results = solver.drain()
+            stage_s["solve"] += time.perf_counter() - t0
+            for pr, hr in results:
+                emit(pr, hr)
+        elif args.threads > 1:
+            _astar_pool(args, reference_genome, sample_to_bams, global_config,
+                        windowed(block_iterator), should_solve, emit)
+        else:
+            for block in windowed(block_iterator):
+                if should_solve(block):
+                    emit(*solve_block(
+                        block, args.vcfs, sample_to_bams[block.sample_name],
+                        reference_genome,
+                        reference_buffer=args.reference_buffer,
+                        min_matched_alleles=args.min_matched_alleles,
+                        min_mapq=args.min_mapping_quality,
+                        min_queue_size=args.phase_min_queue_size,
+                        queue_increment=args.phase_queue_increment,
+                        global_config=global_config, solver="astar"))
+                else:
+                    emit(*create_unphased_result(block))
+    finally:
+        write_queue.put(None)
+        writer_thread.join()
+    if writer_errors:
+        raise writer_errors[0]
+
+    # finalization (ref: main.rs:464-570)
+    if not debug_run:
+        vcf_writer.write_to_end_position()
+        vcf_writer.close()
+        vcf_writer.write_indexes()
+        for writer in bam_writers.values():
+            writer.finalize_chromosome()
+            writer.copy_remaining_chromosomes()
+            writer.close()
+            writer.write_indexes()
+        if args.blocks_file:
+            block_collector.write_blocks(args.blocks_file)
+        if args.summary_file:
+            block_collector.write_block_stats(
+                sample_names, args.summary_file, reference_genome,
+                block_iterator.variant_stats())
+    else:
+        logger.warning("Debug run (--skip/--take): output files are not "
+                       "finalized")
+        vcf_writer.close()
+        for writer in bam_writers.values():
+            writer.close()
+    if stats_writer is not None:
+        stats_writer.close()
+    if haplotag_writer is not None:
+        haplotag_writer.close()
+
+    elapsed = time.time() - start_time
+    logger.info("Phasing complete: %d blocks, %d variants in %.2fs",
+                results_received, total_variants, elapsed)
+    LAST_RUN_STATS.update(engine=engine, blocks=results_received,
+                          variants=total_variants, phasing_seconds=elapsed)
+    if engine == "native":
+        LAST_RUN_STATS.update(node_expansions=solver.total_expansions,
+                              solve_seconds=solver.solve_seconds)
+    if engine == "cuda":
+        after = kernels.launch_counts()
+        LAST_RUN_STATS.update(
+            device=_device_name(solver.device),
+            device_batches=solver.device_batches,
+            device_transfers=solver.device_transfers,
+            transfers_per_batch=(round(solver.device_transfers
+                                       / solver.device_batches, 2)
+                                 if solver.device_batches else None),
+            kernel_launches={k: after[k] - launches_before[k]
+                             for k in after})
+    LAST_RUN_STATS["stage_seconds"] = {
+        k: round(v, 3) for k, v in stage_s.items()}
+    return 0
+
+
+def _device_name(dev: torch.device) -> str:
+    if dev.type == "cuda":
+        return f"{dev} ({torch.cuda.get_device_name(dev)})"
+    return str(dev)
+
+
+def _astar_pool(args, reference_genome, sample_to_bams, global_config,
+                blocks, should_solve, emit) -> None:
+    """Host A* on a fork-based process pool with the reference's
+    40×threads in-flight window (ref: main.rs:325-462)."""
+    import multiprocessing
+    from collections import deque
+
+    from hiphase_tpu.parallel import workers
+    from hiphase_tpu.phasing.phaser import create_unphased_result
+
+    workers.init_parent(
+        reference_genome, args.vcfs, sample_to_bams,
+        reference_buffer=args.reference_buffer,
+        min_matched_alleles=args.min_matched_alleles,
+        min_mapq=args.min_mapping_quality,
+        min_queue_size=args.phase_min_queue_size,
+        queue_increment=args.phase_queue_increment,
+        global_config=global_config)
+    ctx = multiprocessing.get_context("fork")
+    job_slots = 40 * args.threads
+    with ctx.Pool(args.threads) as pool:
+        inflight: deque = deque()
+
+        def emit_one(kind, item):
+            emit(*(item.get() if kind == "solve"
+                   else create_unphased_result(item)))
+
+        for block in blocks:
+            if should_solve(block):
+                inflight.append(("solve", pool.apply_async(
+                    workers.solve_block_worker, (block,))))
+            else:
+                inflight.append(("unphased", block))
+            while len(inflight) >= job_slots:
+                emit_one(*inflight.popleft())
+        while inflight:
+            emit_one(*inflight.popleft())
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,269 @@
+"""Batched device solver on one torch device — the counterpart of
+``hiphase_tpu/parallel/orchestrator.py``.
+
+Prepared blocks are bucketed by slot count and padded into fixed batches.
+Each batch crosses to the device in exactly two host→device copies (packed
+inputs and the skip mask); the beam state is created on the device; the
+tile chain, the backtrace and the stats packing are enqueued on the
+device's current stream without waiting, and up to ``PIPELINE_DEPTH``
+batches stay in flight while the host prepares more. A batch materializes
+with two device→host copies (stats, haplotypes). Blocks not provably
+optimal at the fast width re-solve at the full width.
+
+This slice runs one device; the multi-device branch of the JAX solver is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from hiphase_tpu.core.variants import AlleleType, VariantType
+from hiphase_tpu.phasing.astar import astar_solver
+from hiphase_tpu.phasing.phaser import BlockData, finalize_block
+from hiphase_tpu.writers.phase_stats import PhaseStats
+from hiphase_tpu_torch.phasing.beam import (
+    PACK_PAD, assign_slots, beam_init_device, fetch_haplotypes, max_hets_for,
+    pack_inputs, pack_job_stats, tensorize_block, tiles_backtrace_packed,
+    tiles_forward_packed, unpack_job_stats,
+)
+
+AMB = int(AlleleType.AMBIGUOUS)
+
+# slot-bucket ladder (padded concurrent-read capacities); beyond it the
+# block goes to the host A* oracle
+READ_BUCKETS = (128, 512, 1024)
+# blocks per device batch for each slot bucket; each batch is padded to it
+BUCKET_BATCH = {128: 64, 512: 16, 1024: 8}
+# variant-tile size: columns per tile of the chain
+TILE = 128
+# in-flight device batches before the oldest is forced to materialize
+PIPELINE_DEPTH = 2
+
+
+def _bucket_of(n: int, ladder: tuple[int, ...]) -> int | None:
+    for b in ladder:
+        if n <= b:
+            return b
+    return None
+
+
+def _pad_width(w: int) -> int:
+    """Round a width up to a multiple of 64."""
+    return max(64, ((w + 63) // 64) * 64)
+
+
+def _stats_from_beam(data: BlockData, h1, h2, cost: int, pruned: int,
+                     estimate: bool = False, min_queue_size: int = 1000,
+                     queue_increment: int = 3) -> PhaseStats:
+    phased = sum(1 for a, b in zip(h1, h2) if a != b)
+    phased_snvs = sum(
+        1 for i, (a, b) in enumerate(zip(h1, h2))
+        if a != b and data.variants[i].variant_type == VariantType.SNV)
+    skipped = sum(1 for a, b in zip(h1, h2) if a == b == AMB)
+    hom = len(h1) - phased - skipped
+    if estimate:
+        # --stats-file semantics: estimated_cost is the root value of the
+        # reference's right-to-left heuristic sweep
+        from hiphase_tpu.phasing.astar import (
+            MAX_SEGMENT_SIZE, _BlockReads, calculate_astar_heuristic,
+        )
+        reads = _BlockReads(data.read_segments, len(data.variants))
+        heuristics, _bad = calculate_astar_heuristic(
+            len(data.variants), MAX_SEGMENT_SIZE, reads, min_queue_size,
+            queue_increment, [v.is_ignored for v in data.variants])
+        estimated = heuristics[0]
+    else:
+        estimated = cost
+    return PhaseStats(pruned, estimated, cost, phased, phased_snvs, hom,
+                      skipped)
+
+
+@dataclass
+class _Pending:
+    data: BlockData
+    packed: np.ndarray          # [rb, vp] int32 (see beam.pack_inputs)
+    skip: np.ndarray            # [vp] bool
+
+
+@dataclass
+class _Job:
+    """One dispatched device batch; its tensors are still being computed."""
+
+    pending: list[_Pending]
+    width: int
+    stats: torch.Tensor         # [2 + 2Vp, B] int32 (pack_job_stats)
+    haps: torch.Tensor          # [2Vp, B] uint8 (h1 rows, then h2 rows)
+    escalated: bool = False
+
+
+class BatchedDeviceSolver:
+    """Buckets prepared blocks into fixed-shape padded batches and solves
+    them on ``device``; results flow back through a bounded pipeline."""
+
+    def __init__(self, device: torch.device, beam_width: int | None = None,
+                 batch_size: int = 32, min_queue_size: int = 1000,
+                 queue_increment: int = 3, tile: int = TILE,
+                 compute_estimates: bool = False):
+        self.device = device
+        self.compute_estimates = compute_estimates
+        # default: solve once at the full queue-size width; an explicit
+        # smaller beam_width enables the fast-then-escalate schedule
+        self.full_width = _pad_width(min_queue_size)
+        self.fast_width = self.full_width if beam_width is None \
+            else _pad_width(beam_width)
+        self.full_width = max(self.fast_width, self.full_width)
+        self.batch_cap = max(batch_size, 1)
+        self.min_queue_size = min_queue_size
+        self.queue_increment = queue_increment
+        self.tile = tile
+        self._buckets: dict[int, list[_Pending]] = {}
+        self._esc_buckets: dict[int, list[_Pending]] = {}
+        self._jobs: deque[_Job] = deque()
+        self.device_batches = 0
+        self.device_transfers = 0
+
+    def _batch_size_for(self, rb: int) -> int:
+        return min(BUCKET_BATCH[rb], self.batch_cap)
+
+    def submit(self, data: BlockData):
+        """Queue one prepared block; returns finalized results whose device
+        work has completed."""
+        nv = len(data.variants)
+        _slots, n_slots = assign_slots(data.read_segments) \
+            if data.read_segments else ([], 1)
+        rb = _bucket_of(n_slots, READ_BUCKETS)
+        if rb is None or nv > max_hets_for(self.full_width):
+            # beyond the slot ladder (pathological coverage): host oracle
+            result = astar_solver(data.phase_block.block_index, data.variants,
+                                  data.read_segments, self.min_queue_size,
+                                  self.queue_increment)
+            return [finalize_block(data, result.haplotype_1,
+                                   result.haplotype_2, result.statistics)]
+        vp = ((max(nv, 1) + self.tile - 1) // self.tile) * self.tile
+        alleles, quals, skip, resets = tensorize_block(
+            data.read_segments, data.variants, rb, vp, slotted=True)
+        bucket = self._buckets.setdefault(rb, [])
+        bucket.append(_Pending(data, pack_inputs(alleles, quals, resets),
+                               skip))
+        out = []
+        if len(bucket) >= self._batch_size_for(rb):
+            self._dispatch(self._buckets.pop(rb), rb, self.fast_width)
+        while len(self._jobs) > PIPELINE_DEPTH:
+            out.extend(self._materialize(self._jobs.popleft()))
+        return out
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """One host→device copy. On CUDA it is asynchronous from pinned
+        memory; the caching host allocator keeps the pinned block from
+        being reused until the copy that reads it has completed."""
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _dispatch(self, pending: list[_Pending], rb: int, width: int,
+                  escalated: bool = False) -> None:
+        """Pad a bucket to its batch size and enqueue the whole batch on the
+        device: two host→device copies, then the tile chain, the backtrace
+        and the stats packing, none of which waits for the device."""
+        B = self._batch_size_for(rb)
+        assert len(pending) <= B
+        vp = max(p.packed.shape[1] for p in pending)
+        # vp+1 columns: the trailing PACK_PAD column feeds the last column's
+        # lookahead reset plane
+        PK = np.full((B, rb, vp + 1), PACK_PAD, dtype=np.int32)
+        S = np.ones((B, vp), dtype=bool)
+        for i, p in enumerate(pending):
+            v = p.packed.shape[1]
+            PK[i, :, :v] = p.packed
+            S[i, :v] = p.skip
+        packed_d = self._to_device(PK)
+        skip_d = self._to_device(S)
+        self.device_batches += 1
+        self.device_transfers += 2
+        state = beam_init_device(B, rb, width, self.device)
+        state, traces = tiles_forward_packed(state, packed_d, skip_d, width,
+                                             self.tile)
+        self._jobs.append(_Job(pending, width, pack_job_stats(state, traces),
+                               tiles_backtrace_packed(traces, skip_d), escalated))
+
+    def _materialize(self, job: _Job):
+        """Wait for a dispatched batch (one stats and one haplotype copy to
+        the host) and finalize it; blocks that aren't provably optimal at
+        the fast width re-enter at the full width."""
+        cost, _hets, pruned = unpack_job_stats(job.stats.cpu().numpy())
+        h1a, h2a = fetch_haplotypes(job.haps)
+
+        out = []
+        for i, p in enumerate(job.pending):
+            blk_pruned = int(pruned[i])
+            if (blk_pruned > 0 and not job.escalated
+                    and self.full_width > job.width):
+                rb = p.packed.shape[0]
+                esc = self._esc_buckets.setdefault(rb, [])
+                esc.append(p)
+                if len(esc) >= self._batch_size_for(rb):
+                    self._dispatch(self._esc_buckets.pop(rb), rb,
+                                   self.full_width, escalated=True)
+                continue
+            nv = len(p.data.variants)
+            bh1 = [int(x) for x in h1a[i, :nv]]
+            bh2 = [int(x) for x in h2a[i, :nv]]
+            stats = _stats_from_beam(p.data, bh1, bh2, int(cost[i]),
+                                     blk_pruned,
+                                     estimate=self.compute_estimates,
+                                     min_queue_size=self.min_queue_size,
+                                     queue_increment=self.queue_increment)
+            out.append(finalize_block(p.data, bh1, bh2, stats))
+        return out
+
+    def drain(self):
+        out = []
+        for rb in sorted(self._buckets.keys()):
+            self._dispatch(self._buckets.pop(rb), rb, self.fast_width)
+        while self._jobs:
+            out.extend(self._materialize(self._jobs.popleft()))
+        # escalation rounds: anything re-queued solves at full width
+        while self._esc_buckets or self._jobs:
+            for rb in sorted(self._esc_buckets.keys()):
+                self._dispatch(self._esc_buckets.pop(rb), rb, self.full_width,
+                               escalated=True)
+            while self._jobs:
+                out.extend(self._materialize(self._jobs.popleft()))
+        return out
+
+
+def iter_prepared(block_iterator, prepare_fn, classify,
+                  threads: int = 1, window: int = 40):
+    """Yield (kind, item) per block preserving stream order, preparing up
+    to ``window × threads`` blocks ahead on a pool (the reference's
+    40×threads in-flight backpressure, ref: main.rs:328).
+
+    ``classify(block)`` returns 'solve' (item = prepare_fn(block)) or
+    another kind (item = the block itself)."""
+    if threads <= 1:
+        for block in block_iterator:
+            kind = classify(block)
+            yield (kind, prepare_fn(block) if kind == "solve" else block)
+        return
+
+    max_inflight = window * threads
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        inflight = []  # list of (kind, future-or-block)
+        for block in block_iterator:
+            kind = classify(block)
+            if kind == "solve":
+                inflight.append(("solve", pool.submit(prepare_fn, block)))
+            else:
+                inflight.append((kind, block))
+            while len(inflight) >= max_inflight:
+                kind, item = inflight.pop(0)
+                yield (kind, item.result() if kind == "solve" else item)
+        for kind, item in inflight:
+            yield (kind, item.result() if kind == "solve" else item)

@@ -1,0 +1,56 @@
+"""The CUDA kernels against the plain versions run on the CPU, on a CUDA
+card. These tests need the card and nvcc, and skip elsewhere:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hiphase_tpu_torch import kernels
+from hiphase_tpu_torch.phasing import beam
+
+CPU = torch.device("cpu")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _inputs(B, R, V, seed):
+    rng = np.random.default_rng(seed)
+    alleles = rng.choice(4, size=(B, R, V), p=[0.4, 0.4, 0.1, 0.1])
+    quals = rng.integers(5, 60, size=(B, R, V)).astype(np.int32)
+    quals[alleles >= 2] = 0
+    packed = np.pad(beam.pack_inputs(alleles, quals,
+                                     rng.random((B, R, V)) < 0.05),
+                    ((0, 0), (0, 0), (0, 1)), constant_values=beam.PACK_PAD)
+    return torch.from_numpy(packed), torch.from_numpy(rng.random((B, V))
+                                                      < 0.1)
+
+
+@pytest.mark.parametrize("B,R,V,W", [(4, 32, 40, 64), (3, 130, 20, 256),
+                                     (2, 128, 16, 2560)])
+def test_tile_chain_and_backtrace_on_card_match_cpu(cuda, B, R, V, W):
+    packed, skip = _inputs(B, R, V, seed=B + W)
+    before = kernels.launch_counts()
+    results = []
+    for dev in (CPU, cuda):
+        state, traces = beam.tiles_forward_packed(
+            beam.beam_init_device(B, R, W, dev), packed.to(dev),
+            skip.to(dev), W, tile=16)
+        slot = torch.zeros(B, dtype=torch.int32, device=dev)
+        bt = beam.backtrace_tile(slot, traces[0], traces[1], skip.to(dev))
+        results.append([t.cpu() for t in state + traces + bt])
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+    after = kernels.launch_counts()
+    assert after["beam_select"] - before["beam_select"] == V
+    assert after["permute_update"] - before["permute_update"] == V
+    assert after["backtrace"] - before["backtrace"] == 1
