@@ -7,20 +7,33 @@ line:
   1. the card (nvidia-smi name and power limit), torch / CUDA versions, and
      whether the native host library loaded;
   2. build every kernel from hiphase_tpu_torch/csrc with nvcc (sm_90a);
-  3. hold each kernel against its plain PyTorch version on the card, with
-     exact integer equality, on seeded inputs: one full tile at
+  3. hold each beam kernel against its plain PyTorch version on the card,
+     with exact integer equality, on seeded inputs: one full tile at
      (B, R, W) = (64, 128, 1024), W = 64 and W = 2560, and the (16, 512)
      and (8, 1024) slot buckets; median device times of both (CUDA
      events);
-  4. the golden end-to-end dataset (tests/test_e2e_golden.py) through
-     ``hiphase_tpu_torch.cli.main(... --engine cuda)``: its sha256 must be
-     the committed one;
+  3b. hold the graph-WFA kernel against its plain version, exactly, at
+     H = 32, 128 and 512: seeded graphs with SNV, insertion and deletion
+     (eps) nodes and two-parent joins, with a mutated, an empty and an
+     out-of-band read, and one realistic window (an 8 kb read of the
+     golden dataset over its window graph), where both are timed;
+  4. the golden end-to-end dataset (tests/test_e2e_golden.py, dual mode)
+     through ``hiphase_tpu_torch.cli.main(... --engine cuda)``: its sha256
+     must be the committed one;
   5. the local-mode benchmark configuration (30 Mb, 30x, 15 kb reads,
      --disable-global-realignment, default widths) with --engine cuda,
      record-identical to --engine native (astar when the native library
-     does not load), two host→device copies per batch, every kernel
+     does not load), two host→device copies per batch, every beam kernel
      launched. Without the native host library the genome is cut to
-     BENCH_MB_PURE_PYTHON, and the cut is printed.
+     BENCH_MB_PURE_PYTHON, and the cut is printed;
+  6. the golden dataset again with --engine cuda --wfa-engine device: the
+     same committed sha256, every kernel launched, reads certified on the
+     device at H = 512;
+  7. bench_e2e.py --global's dual-mode configuration (30x, 15 kb reads,
+     1 % errors, seed 0) with --wfa-engine device, record-identical to
+     --wfa-engine host on the same data, every kernel launched. The
+     genome is cut to DUAL_MB so that the whole script stays well inside
+     its time limit, and the cut is printed.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -46,6 +59,12 @@ TIMING_REPS = 20
 # engine then run in pure Python, about 30 s per Mb on an 8-core host)
 BENCH_MB = 30
 BENCH_MB_PURE_PYTHON = 6
+# step 7's genome size (bench.py's dual-mode runs use the same 30 Mb)
+DUAL_MB = 1
+# step 3b: the band ladder and the seeded graph cases
+WFA_H = (32, 128, 512)
+WFA_GRAPH_SEEDS = (0, 1, 2, 3)
+BEAM_KERNELS = ("beam_select", "permute_update", "backtrace")
 
 
 def log(msg: str) -> None:
@@ -226,7 +245,159 @@ def check_kernels(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# steps 4 and 5: the main path through the CLI
+# step 3b: the graph-WFA kernel against its plain version
+
+def wfa_graph_case(seed: int):
+    """A seeded graph of twelve bubbles (SNV, insertion with an empty
+    reference branch, deletion with an empty alternate branch), each
+    closing in a node with two parents, and four reads: the reference
+    path, a mutated copy, an empty read and one whose kstar lies outside
+    the band at every rung."""
+    import numpy as np
+
+    from hiphase_tpu.align.wfa_graph import WFAGraph
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+
+    def seq(n):
+        return rng.choice(acgt, size=n).astype(np.uint8).tobytes()
+
+    graph = WFAGraph(1000)
+    prev = [graph.add_node(seq(20), [])]
+    ref = bytearray(graph.sequences[0])
+    for i in range(12):
+        if i % 3 == 0:
+            a = seq(1)
+            b = bytes([next(x for x in b"ACGT" if x != a[0])])
+        elif i % 3 == 1:
+            a, b = b"", seq(int(rng.integers(1, 6)))
+        else:
+            a, b = seq(int(rng.integers(1, 6))), b""
+        branches = [graph.add_node(a, prev), graph.add_node(b, prev)]
+        tail = seq(int(rng.integers(8, 30)))
+        prev = [graph.add_node(tail, branches)]
+        ref += a + tail
+    mutated = bytearray(ref)
+    for j in rng.choice(len(ref), size=8, replace=False):
+        mutated[j] = int(rng.choice(acgt))
+    return graph, [bytes(ref), bytes(mutated), b"", seq(len(ref) + 700)]
+
+
+def wfa_inputs(graph, reads, device):
+    import numpy as np
+    import torch
+
+    from hiphase_tpu_torch.align import wfa_device as wd
+    ga = wd.linearize_graph(graph)
+    *arrays, n_nodes = wd._padded_arrays(ga)
+    Lr = wd._pad_up(max(len(r) for r in reads), 256)
+    arr = np.zeros((len(reads), Lr), np.int32)
+    for i, r in enumerate(reads):
+        arr[i, :len(r)] = np.frombuffer(r, np.uint8)
+    rl = np.array([len(r) for r in reads], np.int32)
+    tensors = [torch.from_numpy(a).to(device) for a in (*arrays, arr, rl)]
+    return ga, tensors, dict(n_nodes=n_nodes, last_node=ga.last_node,
+                             c_end=ga.c_end)
+
+
+def golden_window(meta):
+    """The longest read among the first 200 of the golden dataset's first
+    phase block, with its window graph as allele assignment builds it."""
+    from hiphase_tpu.core.reference_genome import ReferenceGenome
+    from hiphase_tpu.io.bam import cached_alignment
+    from hiphase_tpu.io.vcf import get_vcf_samples
+    from hiphase_tpu.phasing.block_gen import (
+        PhaseBlockIterator, filter_out_alignment_record)
+    from hiphase_tpu.phasing.phaser import _mark_tr_overlaps, load_variant_calls
+    from hiphase_tpu_torch.phasing.global_realign import read_window
+    reference = ReferenceGenome.from_fasta(meta["fasta"])
+    sample = get_vcf_samples(meta["vcf"])[0]
+    blocks = PhaseBlockIterator([meta["vcf"]], [meta["bam"]], sample,
+                                min_quality=0, min_mapq=5,
+                                min_spanning_reads=1,
+                                allow_supplemental_joins=True)
+    block = next(b for b in blocks if b.num_variants > 1)
+    hets, homs = load_variant_calls(block, [meta["vcf"]], reference, 15,
+                                    True)
+    _mark_tr_overlaps(hets, homs)
+    best = None
+    reads = cached_alignment(meta["bam"]).fetch(block.chrom, block.start,
+                                                block.end + 1)
+    for n, read in enumerate(reads):
+        if n >= 200:
+            break
+        if filter_out_alignment_record(read, 5):
+            continue
+        window = read_window(block, read, hets, homs, reference, 500)
+        if window is not None and (best is None
+                                   or len(window[0]) > len(best[0])):
+            best = window
+    read_align, graph, _node_to_alleles, _first = best
+    return graph, read_align
+
+
+def check_wfa_kernel(device, window) -> dict:
+    """The WFA kernel against its plain version at every rung, on the
+    seeded graphs and the realistic window; times at the window."""
+    import torch
+
+    from hiphase_tpu_torch.align import wfa_device as wd
+
+    def run_both(tensors, H, kw):
+        got = wd.wfa_forward_backward(*tensors, H=H, **kw)
+        want = wd.wfa_forward_backward_plain(*tensors, H=H, **kw)
+        torch.cuda.synchronize()
+        return got, want
+
+    err = 0
+    for seed in WFA_GRAPH_SEEDS:
+        graph, reads = wfa_graph_case(seed)
+        ga, tensors, kw = wfa_inputs(graph, reads, device)
+        real = slice(0, ga.total_pos)
+        shapes = {"eps": bool((ga.pchar[real] < 0).any()),
+                  "join2": bool(((ga.par_idx >= 0).sum(1) >= 2).any())}
+        for H in WFA_H:
+            got, want = run_both(tensors, H, kw)
+            e = max_abs_err(got, want)
+            err = max(err, e)
+            log("wfa check " + json.dumps(
+                {"seed": seed, "H": H, "G": int(tensors[0].shape[0]),
+                 "reads": len(reads), "err": e, **shapes,
+                 "score": want[0].tolist(), "in_band": want[2].tolist()}))
+            if bool(want[2][3]):
+                raise AssertionError("the out-of-band read is in band")
+        if not all(shapes.values()):
+            raise AssertionError(f"graph case {seed} lacks a shape: {shapes}")
+
+    graph, read = window
+    ga, tensors, kw = wfa_inputs(graph, [read], device)
+    result = {}
+    for H in WFA_H:
+        got, want = run_both(tensors, H, kw)
+        e = max_abs_err(got, want)
+        err = max(err, e)
+        ms = median_ms(lambda: wd.wfa_forward_backward(*tensors, H=H, **kw),
+                       reps=5)
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        wd.wfa_forward_backward_plain(*tensors, H=H, **kw)
+        stop.record()
+        stop.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        log("wfa window " + json.dumps(
+            {"H": H, "G": int(tensors[0].shape[0]), "read_len": len(read),
+             "nodes": ga.n_nodes, "spread": ga.spread, "err": e,
+             "score": int(want[0][0]), "in_band": bool(want[2][0]),
+             "ms": ms, "plain_ms": plain_ms}))
+        result = {"ms": ms, "plain_ms": plain_ms}  # the last rung, H = 512
+    if err:
+        raise AssertionError(f"wfa_forward_backward disagrees with its "
+                             f"plain version: max error {err}")
+    return {"max_abs_err": err, **result}
+
+
+# ---------------------------------------------------------------------------
+# steps 4 to 7: the main paths through the CLI
 
 def run_cli(argv):
     from hiphase_tpu_torch import cli
@@ -247,24 +418,44 @@ def load_golden_test():
     return module
 
 
-def check_golden(workdir: str) -> dict:
+def build_golden(workdir: str) -> dict:
     from hiphase_tpu.utils.simulate import build_benchmark_dataset
+    return build_benchmark_dataset(os.path.join(workdir, "golden"),
+                                   **load_golden_test().DATASET_KW)
+
+
+def check_golden(workdir: str, meta: dict, wfa_engine: str,
+                 threads: int = 1) -> dict:
+    """The golden dataset with --engine cuda and the given --wfa-engine;
+    with the device WFA, every kernel must launch in the run and some
+    reads must certify on the device at H = 512."""
+    from hiphase_tpu_torch import kernels
     golden = load_golden_test()
-    meta = build_benchmark_dataset(os.path.join(workdir, "golden"),
-                                   **golden.DATASET_KW)
-    out = [os.path.join(workdir, f"golden.{x}")
+    out = [os.path.join(workdir, f"golden.{wfa_engine}.{x}")
            for x in ("vcf.gz", "bam", "blocks.tsv")]
+    kernels.reset_launch_counts()
     secs, stats = run_cli(["--bam", meta["bam"], "--vcf", meta["vcf"],
                            "--reference", meta["fasta"],
                            "--output-vcf", out[0], "--output-bam", out[1],
-                           "--blocks-file", out[2], "--engine", "cuda"])
+                           "--blocks-file", out[2], "--engine", "cuda",
+                           "--wfa-engine", wfa_engine,
+                           "--threads", str(threads)])
+    launches = kernels.launch_counts()
     digest = golden._digest(golden._normalize(*out))
     want = json.loads(golden.GOLDEN.read_text())["sha256"]
-    log(f"golden: sha256 {digest} (committed {want}), {secs:.2f} s, "
-        f"{json.dumps(stats)}")
+    log(f"golden (--wfa-engine {wfa_engine}): sha256 {digest} (committed "
+        f"{want}), {secs:.2f} s, {json.dumps(stats)}")
     if digest != want:
         raise AssertionError("golden sha256 differs from the committed one")
-    return stats
+    if wfa_engine == "device":
+        missing = [k for k, n in launches.items() if n <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the dual-mode "
+                                 f"path: {missing}")
+        if stats["wfa"]["certified"].get("512", 0) <= 0:
+            raise AssertionError("no read certified on the device at "
+                                 "H = 512")
+    return launches
 
 
 def vcf_records(path):
@@ -321,10 +512,61 @@ def check_local_bench(workdir: str, host_engine: str, total_mb: int) -> dict:
                              f"--engine {host_engine}")
     if stats.get("transfers_per_batch") != 2.0:
         raise AssertionError("expected two host→device copies per batch")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in BEAM_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    return launches
+
+
+def check_dual_bench(workdir: str, total_mb: int) -> dict:
+    """bench_e2e.py --global's configuration with --wfa-engine device,
+    record-identical to --wfa-engine host; every kernel launched."""
+    from hiphase_tpu.utils.simulate import build_benchmark_dataset
+    from hiphase_tpu_torch import kernels
+    t0 = time.perf_counter()
+    meta = build_benchmark_dataset(
+        os.path.join(workdir, "dual"), total_mb=total_mb, coverage=30,
+        read_length=15_000, seed=0, het_spacing=800, error_rate=0.01,
+        block_kb=250, io_threads=2)
+    log(f"dual bench dataset: {total_mb} Mb, {meta['n_het']} hets, "
+        f"{meta['n_reads']} reads, built in {time.perf_counter() - t0:.1f} s")
+
+    def argv(wfa):
+        return ["--bam", meta["bam"], "--vcf", meta["vcf"],
+                "--reference", meta["fasta"], "--output-vcf",
+                os.path.join(workdir, f"dual.{wfa}.vcf.gz"),
+                "--blocks-file", os.path.join(workdir, f"dual.{wfa}.tsv"),
+                "--engine", "cuda", "--threads", "2", "--wfa-engine", wfa]
+
+    kernels.reset_launch_counts()
+    dev_s, stats = run_cli(argv("device"))
+    launches = kernels.launch_counts()
+    host_s, host_stats = run_cli(argv("host"))
+    same_vcf = (vcf_records(os.path.join(workdir, "dual.device.vcf.gz"))
+                == vcf_records(os.path.join(workdir, "dual.host.vcf.gz")))
+    with open(os.path.join(workdir, "dual.device.tsv")) as a, \
+            open(os.path.join(workdir, "dual.host.tsv")) as b:
+        same_blocks = a.read() == b.read()
+    summary = {
+        "total_mb": total_mb, "n_het": meta["n_het"],
+        "n_reads": meta["n_reads"],
+        "device_wfa_seconds": dev_s,
+        "device_wfa_hets_per_sec": meta["n_het"] / dev_s,
+        "host_wfa_seconds": host_s,
+        "host_wfa_hets_per_sec": meta["n_het"] / host_s,
+        "wfa": stats.get("wfa"), "kernel_launches": launches,
+        "stage_seconds": stats.get("stage_seconds"),
+        "host_stage_seconds": host_stats.get("stage_seconds"),
+        "record_identical": same_vcf and same_blocks}
+    log("dual bench " + json.dumps(summary))
+    if not same_vcf or not same_blocks:
+        raise AssertionError("--wfa-engine device output differs from "
+                             "--wfa-engine host")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the dual-mode "
+                             f"path: {missing}")
     return launches
 
 
@@ -361,12 +603,16 @@ def main() -> int:
                 if "registers" in x or "spill" in x]
         log(f"  {name}: {b.library.name}; " + " | ".join(info))
 
-    # 3. kernels against their plain versions
+    # 3. beam kernels against their plain versions
     checks = check_kernels(device)
 
     with tempfile.TemporaryDirectory(prefix="hiphase_smoke_") as workdir:
+        golden_meta = build_golden(workdir)
+        # 3b. the graph-WFA kernel against its plain version
+        checks["wfa_forward_backward"] = check_wfa_kernel(
+            device, golden_window(golden_meta))
         # 4. golden dataset
-        check_golden(workdir)
+        check_golden(workdir, golden_meta, "host")
         # 5. the local-mode benchmark configuration
         total_mb = BENCH_MB if native.available() else BENCH_MB_PURE_PYTHON
         if total_mb != BENCH_MB:
@@ -374,6 +620,16 @@ def main() -> int:
                 f"because the native host library did not load and the "
                 f"host path runs in pure Python")
         launches = check_local_bench(workdir, host_engine, total_mb)
+        # 6. golden dataset, dual mode on the device WFA; four prepare
+        # threads keep several WFA launches in flight (the output does
+        # not depend on the thread count)
+        check_golden(workdir, golden_meta, "device", threads=4)
+        # 7. the dual-mode benchmark configuration
+        log(f"dual bench cut: total_mb 30 -> {DUAL_MB}, to keep the script "
+            f"inside its time limit (host paths in pure Python: "
+            f"{not native.available()})")
+        launches["wfa_forward_backward"] = check_dual_bench(
+            workdir, DUAL_MB)["wfa_forward_backward"]
 
     table = [{"name": name, "route": "cuda",
               "source": os.path.relpath(k.source, HERE),

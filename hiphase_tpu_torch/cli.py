@@ -11,8 +11,11 @@ Differences from ``hiphase_tpu.cli``, all deliberate:
     error ends the run with that error;
   * ``--engine auto`` resolves before the run from what the machine has
     (see `parallel.engine_select`) and never switches mid-run;
-  * ``--wfa-engine device`` is refused (its kernel is not ported yet), and
-    multi-host runs are not supported;
+  * ``--wfa-engine device`` aligns dual-mode reads on the CUDA kernel (or,
+    with ``device=torch.device("cpu")``, its plain version) whatever the
+    engine; with ``--engine astar`` it prepares blocks on threads of this
+    process, never in forked workers (see `HostAStarSolver`);
+  * multi-host runs are not supported;
   * `main` raises on error instead of returning 1.
 """
 
@@ -59,9 +62,10 @@ def build_parser():
 def main(argv=None, device: torch.device | None = None) -> int:
     """Run the phaser; returns 0 or raises.
 
-    ``device`` is where the cuda engine runs: None means the current CUDA
-    device (an error when there is none); ``torch.device("cpu")`` runs the
-    kernels' plain PyTorch versions instead.
+    ``device`` is where the cuda engine and the device WFA
+    (``--wfa-engine device``) run: None means the current CUDA device (an
+    error when there is none); ``torch.device("cpu")`` runs the kernels'
+    plain PyTorch versions instead.
     """
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -70,10 +74,6 @@ def main(argv=None, device: torch.device | None = None) -> int:
         datefmt="%Y-%m-%d %H:%M:%S")
     logger.info("hiphase-tpu-torch version %s", full_version())
     check_settings(args)
-    if args.wfa_engine == "device":
-        raise SystemExit("--wfa-engine device is not available in "
-                         "hiphase_tpu_torch yet (its kernel is not ported); "
-                         "use --wfa-engine host")
     LAST_RUN_STATS.clear()
 
     from hiphase_tpu.core.reference_genome import ReferenceGenome
@@ -81,8 +81,8 @@ def main(argv=None, device: torch.device | None = None) -> int:
     from hiphase_tpu.io.vcf import get_vcf_samples
     from hiphase_tpu.phasing.block_gen import (
         MultiPhaseBlockIterator, PhaseBlockIterator, get_sample_bams)
-    from hiphase_tpu.phasing.phaser import (
-        create_unphased_result, prepare_block, solve_block)
+    from hiphase_tpu.phasing.phaser import create_unphased_result, solve_block
+    from hiphase_tpu_torch.phasing.phaser import prepare_block
     from hiphase_tpu.writers.bam_writer import OrderedBamWriter
     from hiphase_tpu.writers.block_stats import BlockStatsCollector
     from hiphase_tpu.writers.haplotag_writer import HaplotagWriter
@@ -103,6 +103,15 @@ def main(argv=None, device: torch.device | None = None) -> int:
         raise SystemExit("--ignore-read-groups cannot be used with multiple "
                          "sample names")
 
+    global_config = global_realignment_config(args)
+    wfa_device = wfa_counters = None
+    if global_config is not None and global_config.wfa_engine == "device":
+        from hiphase_tpu_torch.align.wfa_device import WfaCounters
+        from hiphase_tpu_torch.device import resolve_device
+        wfa_device = resolve_device(device)
+        wfa_counters = WfaCounters()
+        logger.info("Device WFA on %s", _device_name(wfa_device))
+
     engine = choose_engine(args.engine)
     solver = None
     if engine == "cuda":
@@ -122,6 +131,9 @@ def main(argv=None, device: torch.device | None = None) -> int:
             min_queue_size=args.phase_min_queue_size,
             queue_increment=args.phase_queue_increment, threads=args.threads,
             compute_estimates=args.stats_file is not None)
+    elif wfa_device is not None:
+        solver = HostAStarSolver(args.phase_min_queue_size,
+                                 args.phase_queue_increment)
     launches_before = kernels.launch_counts()
 
     logger.info("Loading reference genome...")
@@ -174,7 +186,6 @@ def main(argv=None, device: torch.device | None = None) -> int:
         raise SystemExit("Output files will require .csi indexing; use "
                          "--csi-index to enable")
 
-    global_config = global_realignment_config(args)
     debug_run = args.skip > 0 or args.take != U64_MAX
 
     start_time = time.time()
@@ -271,7 +282,7 @@ def main(argv=None, device: torch.device | None = None) -> int:
                         block, args.vcfs, sample_to_bams[block.sample_name],
                         reference_genome, args.reference_buffer,
                         args.min_matched_alleles, args.min_mapping_quality,
-                        global_config)
+                        global_config, wfa_device, wfa_counters)
                 finally:
                     dt = time.perf_counter() - t0
                     with stage_lock:  # float += is not atomic across threads
@@ -353,16 +364,20 @@ def main(argv=None, device: torch.device | None = None) -> int:
         LAST_RUN_STATS.update(node_expansions=solver.total_expansions,
                               solve_seconds=solver.solve_seconds)
     if engine == "cuda":
-        after = kernels.launch_counts()
         LAST_RUN_STATS.update(
             device=_device_name(solver.device),
             device_batches=solver.device_batches,
             device_transfers=solver.device_transfers,
             transfers_per_batch=(round(solver.device_transfers
                                        / solver.device_batches, 2)
-                                 if solver.device_batches else None),
-            kernel_launches={k: after[k] - launches_before[k]
-                             for k in after})
+                                 if solver.device_batches else None))
+    if wfa_device is not None:
+        LAST_RUN_STATS.update(wfa_device=_device_name(wfa_device),
+                              wfa=wfa_counters.as_dict())
+    if engine == "cuda" or wfa_device is not None:
+        after = kernels.launch_counts()
+        LAST_RUN_STATS["kernel_launches"] = {
+            k: after[k] - launches_before[k] for k in after}
     LAST_RUN_STATS["stage_seconds"] = {
         k: round(v, 3) for k, v in stage_s.items()}
     return 0
@@ -372,6 +387,33 @@ def _device_name(dev: torch.device) -> str:
     if dev.type == "cuda":
         return f"{dev} ({torch.cuda.get_device_name(dev)})"
     return str(dev)
+
+
+class HostAStarSolver:
+    """The host A* oracle behind the solver interface of
+    `BatchedDeviceSolver`, for ``--engine astar --wfa-engine device``.
+
+    Blocks are prepared on `iter_prepared`'s threads in this process and
+    solved here one by one (``astar_solver`` + ``finalize_block``, as
+    ``solve_block`` does). There is no fork: allele assignment launches the
+    device WFA, and a forked worker cannot use the CUDA context made in its
+    parent."""
+
+    def __init__(self, min_queue_size: int, queue_increment: int):
+        self.min_queue_size = min_queue_size
+        self.queue_increment = queue_increment
+
+    def submit(self, data):
+        from hiphase_tpu.phasing.astar import astar_solver
+        from hiphase_tpu.phasing.phaser import finalize_block
+        result = astar_solver(data.phase_block.block_index, data.variants,
+                              data.read_segments, self.min_queue_size,
+                              self.queue_increment)
+        return [finalize_block(data, result.haplotype_1, result.haplotype_2,
+                               result.statistics)]
+
+    def drain(self):
+        return []
 
 
 def _astar_pool(args, reference_genome, sample_to_bams, global_config,

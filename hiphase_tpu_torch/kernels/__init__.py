@@ -8,18 +8,27 @@ kernel that does not build, does not load or does not launch raises;
 nothing here falls back to another implementation.
 
 ``Kernel.launches`` counts the launches made through ``Kernel.launch``,
-so a run can show which kernels its main path went through.
+so a run can show which kernels its main path went through. Launches may
+come from several threads (allele assignment launches the WFA kernel from
+the prepare threads): the first one builds and binds under a lock, and the
+count is kept under a lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from ctypes import c_int, c_void_p
 
 from hiphase_tpu_torch.kernels import build
 
 # Shared memory one block may use on an H100 (dynamic, after opting in).
 MAX_DYNAMIC_SMEM = 232_448 - 1_024   # less the kernels' static shared use
+
+
+# One build or bind at a time in this process: nvcc writes each library
+# through a temporary path named after the process.
+_BUILD_LOCK = threading.Lock()
 
 
 class KernelLaunchError(RuntimeError):
@@ -37,6 +46,7 @@ class Kernel:
         self._argtypes = argtypes
         self._fn = None
         self._lib = None
+        self._count_lock = threading.Lock()
 
     def bind(self, library_path) -> None:
         lib = ctypes.CDLL(str(library_path))
@@ -49,12 +59,15 @@ class Kernel:
 
     def launch(self, *args) -> None:
         if self._fn is None:
-            self.bind(build.build([self.name])[self.name].library)
+            with _BUILD_LOCK:
+                if self._fn is None:
+                    self.bind(build.build([self.name])[self.name].library)
         rc = self._fn(*args)
         if rc != 0:
             msg = self._lib.hp_error_string(rc).decode()
             raise KernelLaunchError(f"{self.name}: CUDA error {rc} ({msg})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 P, I = c_void_p, c_int
@@ -68,8 +81,14 @@ PERMUTE_UPDATE = Kernel(
 BACKTRACE = Kernel(
     "backtrace", "hiphase_tpu/phasing/beam.py:363 (backtrace_tile)",
     [P, P, P, P, I, I, I, P, P, P, I, P])
+WFA_FORWARD_BACKWARD = Kernel(
+    "wfa_forward_backward",
+    "hiphase_tpu/align/wfa_device.py:111 (wfa_forward_backward)",
+    [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+     P, P, P, P, P, P, P, I, P])
 
-KERNELS = {k.name: k for k in (BEAM_SELECT, PERMUTE_UPDATE, BACKTRACE)}
+KERNELS = {k.name: k for k in (BEAM_SELECT, PERMUTE_UPDATE, BACKTRACE,
+                               WFA_FORWARD_BACKWARD)}
 
 
 def beam_select_smem_bytes(width: int, slots: int) -> int:
@@ -84,9 +103,10 @@ def beam_select_smem_bytes(width: int, slots: int) -> int:
 
 def build_all() -> dict[str, build.BuiltKernel]:
     """Build (one nvcc per source, all at once) and bind every kernel."""
-    built = build.build(list(KERNELS))
-    for name, b in built.items():
-        KERNELS[name].bind(b.library)
+    with _BUILD_LOCK:
+        built = build.build(list(KERNELS))
+        for name, b in built.items():
+            KERNELS[name].bind(b.library)
     return built
 
 
@@ -96,4 +116,5 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        with k._count_lock:
+            k.launches = 0

@@ -2,8 +2,8 @@
 
 Checked in a subprocess, because tests/conftest.py imports JAX into the
 test process: import every module of hiphase_tpu_torch and chip_smoke.py,
-run a tiny solve and a tiny CLI run on the CPU, then assert that no JAX
-module was loaded.
+run a tiny solve and tiny CLI runs on the CPU (local mode, and dual mode
+with --wfa-engine device), then assert that no JAX module was loaded.
 """
 
 import os
@@ -48,6 +48,12 @@ with tempfile.TemporaryDirectory() as d:
                          "--output-vcf", str(d / f"{engine}.vcf.gz"),
                          "--engine", engine, "--beam-width", "64"],
                         device=torch.device("cpu")) == 0
+    # dual mode on the device WFA's plain version
+    assert cli.main(["--bam", bam, "--vcf", vcf, "--reference", fasta,
+                     "--output-vcf", str(d / "dual.vcf.gz"),
+                     "--engine", "cuda", "--wfa-engine", "device"],
+                    device=torch.device("cpu")) == 0
+    assert cli.LAST_RUN_STATS["wfa"]["reads"] > 0
 
 jax_modules = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -62,7 +62,8 @@ def test_golden_outputs_cuda_engine_plain_on_cpu(tmp_path):
     assert stats["transfers_per_batch"] == 2.0
     # the plain versions ran: no kernel was launched
     assert stats["kernel_launches"] == {"beam_select": 0,
-                                        "permute_update": 0, "backtrace": 0}
+                                        "permute_update": 0, "backtrace": 0,
+                                        "wfa_forward_backward": 0}
 
 
 @pytest.mark.parametrize("scenario", ["threaded", "drain_partial"])
@@ -146,15 +147,6 @@ def test_auto_without_cuda_resolves_to_a_host_engine(tmp_path, monkeypatch):
                           [])) == 0
     want = "native" if native.available() else "astar"
     assert cli.LAST_RUN_STATS["engine"] == want
-
-
-def test_device_wfa_engine_is_refused(tmp_path):
-    fasta, vcf, bam, _contigs, _ = build_dataset(
-        tmp_path, seed=27, n_contigs=1, contig_len=3000)
-    with pytest.raises(SystemExit, match="wfa-engine device"):
-        cli.main(["--bam", bam, "--vcf", vcf, "--reference", fasta,
-                  "--output-vcf", str(tmp_path / "o.vcf.gz"),
-                  "--wfa-engine", "device", "--engine", "cuda"], device=CPU)
 
 
 def test_engine_flag_surface():

@@ -1,7 +1,10 @@
 """The CUDA kernels against the plain versions run on the CPU, on a CUDA
 card. These tests need the card and nvcc, and skip elsewhere:
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+(from the repository's root, which must be on sys.path: the WFA test
+takes its graphs from chip_smoke.py)
 """
 
 import numpy as np
@@ -54,3 +57,21 @@ def test_tile_chain_and_backtrace_on_card_match_cpu(cuda, B, R, V, W):
     assert after["beam_select"] - before["beam_select"] == V
     assert after["permute_update"] - before["permute_update"] == V
     assert after["backtrace"] - before["backtrace"] == 1
+
+
+@pytest.mark.parametrize("H", [32, 128, 512])
+def test_wfa_kernel_on_card_matches_cpu(cuda, H):
+    """chip_smoke.py's seeded graph (SNV, empty reference and empty
+    alternate branches, two-parent joins; a mutated, an empty and an
+    out-of-band read) through the kernel and through its plain version."""
+    import chip_smoke
+    from hiphase_tpu_torch.align import wfa_device as wd
+    graph, reads = chip_smoke.wfa_graph_case(H)
+    _ga, host, kw = chip_smoke.wfa_inputs(graph, reads, CPU)
+    before = kernels.launch_counts()["wfa_forward_backward"]
+    got = wd.wfa_forward_backward(*(t.to(cuda) for t in host), H=H, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["wfa_forward_backward"] - before == 1
+    want = wd.wfa_forward_backward(*host, H=H, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

@@ -1,0 +1,231 @@
+"""The port's device graph-WFA against the JAX package's, on the CPU.
+
+The same seeded inputs go through ``hiphase_tpu.align.wfa_device`` (JAX on
+the CPU, as tests/test_wfa_device.py runs it) and through
+``hiphase_tpu_torch.align.wfa_device`` (the kernel's plain version, which
+the wrapper runs for CPU tensors). Every result is an integer or a boolean
+and must be equal: tolerance 0.
+"""
+
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+import tests.test_wfa_graph as twg
+from hiphase_tpu.align import wfa_device as jax_wfa
+from hiphase_tpu.align.wfa_graph import WFAGraph, WFAGraphError, WFAResult
+from hiphase_tpu.core.variants import Variant
+from hiphase_tpu_torch import kernels
+from hiphase_tpu_torch.align import wfa_device as port
+
+CPU = torch.device("cpu")
+ACGT = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _random_case(rng):
+    """tests/test_wfa_device.py's randomized graph: SNVs, insertions and
+    deletions on a random reference, and a mutated read."""
+    n = int(rng.integers(2, 8))
+    length = 40 + n * 12
+    ref = rng.choice(ACGT, size=length).astype(np.uint8).tobytes()
+    variants = []
+    pos = 5
+    while pos < length - 12 and len(variants) < n:
+        kind = rng.choice(["snv", "ins", "del"])
+        if kind == "snv":
+            alt = bytes([rng.choice([b for b in b"ACGT" if b != ref[pos]])])
+            variants.append(Variant.new_snv(0, pos, ref[pos:pos + 1], alt,
+                                            0, 1))
+        elif kind == "ins":
+            ins = rng.choice(ACGT, size=int(rng.integers(1, 4))
+                             ).astype(np.uint8).tobytes()
+            variants.append(Variant.new_insertion(
+                0, pos, ref[pos:pos + 1], ref[pos:pos + 1] + ins, 0, 1))
+        else:
+            d = int(rng.integers(1, 4))
+            variants.append(Variant.new_deletion(
+                0, pos, 1 + d, ref[pos:pos + 1 + d], ref[pos:pos + 1], 0, 1))
+        pos += int(rng.integers(6, 14))
+    g, _ = WFAGraph.from_reference_variants(ref, variants, 0, length, 1000)
+    obs = bytearray(ref)
+    for j in rng.choice(length, size=int(rng.integers(0, 4)), replace=False):
+        obs[j] = rng.choice(ACGT)
+    return g, bytes(obs)
+
+
+def _both(graph, reads, H):
+    """(JAX, port) results of the forward/backward pass on the same
+    padded arrays."""
+    ga = jax_wfa.linearize_graph(graph)
+    *arrays, n_nodes = jax_wfa._padded_arrays(ga)
+    Lr = jax_wfa._pad_up(max((len(r) for r in reads), default=1), 256)
+    arr = np.zeros((len(reads), Lr), np.int32)
+    for i, r in enumerate(reads):
+        arr[i, :len(r)] = np.frombuffer(r, np.uint8)
+    rl = np.array([len(r) for r in reads], np.int32)
+    want = jax_wfa.wfa_forward_backward(
+        *arrays, arr, rl, H=H, n_nodes=n_nodes,
+        last_node=np.int32(ga.last_node), c_end=np.int32(ga.c_end))
+    got = port.wfa_forward_backward(
+        *(torch.from_numpy(a) for a in (*arrays, arr, rl)), H=H,
+        n_nodes=n_nodes, last_node=ga.last_node, c_end=ga.c_end)
+    return [np.asarray(w) for w in want], [g.numpy() for g in got]
+
+
+def _assert_equal(want, got):
+    for w, g in zip(want, got):
+        assert w.dtype == g.dtype and w.shape == g.shape
+        assert np.array_equal(w, g)
+
+
+def _graphs():
+    rng = np.random.default_rng(7)
+    graphs = [_random_case(rng)[0] for _ in range(5)]
+    graphs.append(chip_smoke.wfa_graph_case(3)[0])
+    g = WFAGraph()
+    g.add_node(b"", [])   # an empty root node
+    g.add_node(b"ACGT", [0])
+    graphs.append(g)
+    return graphs
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_linearize_and_padding_equal_jax(case):
+    graph = _graphs()[case]
+    want, got = jax_wfa.linearize_graph(graph), port.linearize_graph(graph)
+    for name in ("n_nodes", "spread", "total_pos", "last_node", "c_end"):
+        assert getattr(got, name) == getattr(want, name)
+    w_pad, g_pad = jax_wfa._padded_arrays(want), port._padded_arrays(got)
+    assert w_pad[-1] == g_pad[-1]
+    for w, g in zip(w_pad[:-1], g_pad[:-1]):
+        assert w.dtype == g.dtype and np.array_equal(w, g)
+
+
+@pytest.mark.parametrize("H", port.H_LADDER)
+def test_plain_equals_jax_randomized(H):
+    """The 25 randomized graphs of tests/test_wfa_device.py, each with its
+    mutated read, a trimmed read and an empty read."""
+    rng = np.random.default_rng(7)
+    for _trial in range(25):
+        g, obs = _random_case(rng)
+        _assert_equal(*_both(g, [obs, obs[3:-4], b""], H))
+
+
+@pytest.mark.parametrize("H", port.H_LADDER)
+def test_plain_equals_jax_mixed_batch(H):
+    """tests/test_wfa_device.py's mixed batch in one call."""
+    ref = b"ACGTACGTACGTACGTACGTACGTACGTACGT"
+    variants = [Variant.new_snv(0, 7, b"G", b"C", 0, 1),
+                Variant.new_snv(0, 19, b"T", b"A", 0, 1)]
+    g, _ = WFAGraph.from_reference_variants(ref, variants, 0, len(ref), 1000)
+    reads = [ref, ref[:7] + b"C" + ref[8:], ref[2:30], b"",
+             ref[:19] + b"A" + ref[20:]]
+    _assert_equal(*_both(g, reads, H))
+
+
+@pytest.mark.parametrize("H", port.H_LADDER)
+def test_plain_equals_jax_joins_empty_and_out_of_band(H):
+    """chip_smoke.py's seeded graph: two-parent joins and empty (eps)
+    branches, with the reference path, a mutated read, an empty read, and
+    a read whose kstar falls outside the band."""
+    g, reads = chip_smoke.wfa_graph_case(5)
+    ga = port.linearize_graph(g)
+    assert ((ga.par_idx >= 0).sum(1) >= 2).any() and (ga.pchar < 0).any()
+    want, got = _both(g, reads, H)
+    _assert_equal(want, got)
+    assert not got[2][3], "the out-of-band read must be out of band"
+
+
+def test_align_reads_device_equals_jax_across_the_ladder():
+    """Reads certified at H = 32, one certified only at H = 128, and one
+    that no rung certifies (None); the counters follow the ladder."""
+    rng = np.random.default_rng(11)
+    ref = rng.choice(ACGT, size=300).astype(np.uint8).tobytes()
+    variants = [Variant.new_snv(0, p, ref[p:p + 1],
+                                bytes([next(b for b in b"ACGT"
+                                            if b != ref[p])]), 0, 1)
+                for p in (40, 120, 200)]
+    g, _ = WFAGraph.from_reference_variants(ref, variants, 0, len(ref), 1000)
+    noisy = bytearray(ref)
+    for j in range(5, 300, 7):          # ~43 substitutions: score > 32
+        noisy[j] = ord("A") if noisy[j] != ord("A") else ord("C")
+    alt_path = ref[:120] + variants[1].allele1 + ref[121:]
+    unplaceable = rng.choice(ACGT, size=900).astype(np.uint8).tobytes()
+    reads = [ref, bytes(noisy), alt_path, unplaceable]
+    counters = port.WfaCounters()
+    got = port.align_reads_device(g, reads, CPU, counters=counters)
+    assert got == jax_wfa.align_reads_device(g, reads)
+    assert got[1] is not None and got[1][0] > 32
+    assert got[3] is None
+    assert counters.as_dict() == {
+        "reads": 4, "certified": {"32": 2, "128": 1}, "uncertified": 1,
+        "band_calls": 3, "h2d_copies": 0}
+
+
+def _port_result(graph, seq):
+    res = port.align_reads_device(graph, [bytes(seq)], CPU)
+    assert res[0] is not None, "band ladder failed to certify a tiny case"
+    score, trav = res[0]
+    if score > graph.max_edit_distance:
+        raise WFAGraphError(graph.max_edit_distance)
+    return WFAResult(score, trav)
+
+
+SCENARIOS = [n for n in dir(twg)
+             if n.startswith("test_") and "native" not in n]
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_scenario_on_port(name, monkeypatch):
+    """Every pinned scenario of tests/test_wfa_graph.py, replayed through
+    the port's align_reads_device as tests/test_wfa_device.py replays it
+    through the JAX package's."""
+    monkeypatch.setattr(WFAGraph, "edit_distance", _port_result)
+    monkeypatch.setattr(WFAGraph, "edit_distance_with_pruning",
+                        lambda self, seq, prune: _port_result(self, seq))
+    getattr(twg, name)()
+
+
+def test_kernel_builds_and_binds_once_across_threads(monkeypatch, tmp_path):
+    """Eight threads reaching a fresh kernel at once: one build, one bind,
+    every launch counted."""
+    kernel = kernels.Kernel("wfa_forward_backward", "test", [])
+    builds = []
+    gate = threading.Barrier(8)
+
+    def fake_build(names):
+        time.sleep(0.05)   # a window for a second thread to build as well
+        builds.append(list(names))
+        return {n: kernels.build.BuiltKernel(tmp_path / f"{n}.so", "")
+                for n in names}
+
+    def fake_bind(library_path):
+        kernel._lib = object()
+        kernel._fn = lambda *args: 0
+
+    monkeypatch.setattr(kernels.build, "build", fake_build)
+    monkeypatch.setattr(kernel, "bind", fake_bind)
+
+    def worker():
+        gate.wait()
+        for _ in range(50):
+            kernel.launch()
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert builds == [["wfa_forward_backward"]]
+    assert kernel.launches == 400
