@@ -13,13 +13,16 @@ line:
      and (8, 1024) slot buckets; median device times of both (CUDA
      events);
   3b. hold the graph-WFA kernel against its plain version, exactly, at
-     H = 32, 128 and 512: seeded graphs with SNV, insertion and deletion
-     (eps) nodes and two-parent joins, with a mutated, an empty and an
-     out-of-band read, and one realistic window (an 8 kb read of the
-     golden dataset over its window graph), where both are timed;
-  4. the golden end-to-end dataset (tests/test_e2e_golden.py, dual mode)
-     through ``hiphase_tpu_torch.cli.main(... --engine cuda)``: its sha256
-     must be the committed one;
+     H = 32, 128 and 512, on one ragged batch in one launch: seeded graphs of different lengths
+     and parent counts (SNV, insertion and deletion (eps) nodes, two- and
+     three-parent joins), each with a reference, a mutated, an empty and
+     an out-of-band read, and one realistic window (an 8 kb read of the
+     golden dataset over its window graph), timed. Then time the window
+     alone (a batch of one, as one read per launch was timed before) and a
+     batch of WFA_BATCH copies of it; every time beside its bound;
+  4. the golden end-to-end dataset (tests/test_e2e_golden.py's settings,
+     dual mode) through ``hiphase_tpu_torch.cli.main(... --engine cuda)``:
+     its sha256 must be the committed one;
   5. the local-mode benchmark configuration (30 Mb, 30x, 15 kb reads,
      --disable-global-realignment, default widths) with --engine cuda,
      record-identical to --engine native (astar when the native library
@@ -31,11 +34,19 @@ line:
      device at H = 512;
   7. bench_e2e.py --global's dual-mode configuration (30x, 15 kb reads,
      1 % errors, seed 0) with --wfa-engine device, record-identical to
-     --wfa-engine host on the same data, every kernel launched. The
-     genome is cut to DUAL_MB so that the whole script stays well inside
-     its time limit, and the cut is printed.
+     --wfa-engine host on the same data, every kernel launched, a few WFA
+     launches per block (far fewer than reads). The genome is cut to
+     DUAL_MB so that the whole script stays well inside its time limit,
+     and the cut is printed.
+Steps 6 and 7 print the device-WFA run's wall time, its WFA launches and
+the pairs each launch carried. Step 7 then runs the device-WFA
+configuration once more under torch.profiler and prints its device time by
+kernel and the device's busy share (the profiler slows the host, so the
+walls are those of the run before).
 
-The last line of standard output is
+The line before the last lists every kernel with its launches on the main
+path, its error against its plain version, its time, its plain version's
+time and its bound (`bound`); the last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -61,14 +72,73 @@ BENCH_MB = 30
 BENCH_MB_PURE_PYTHON = 6
 # step 7's genome size (bench.py's dual-mode runs use the same 30 Mb)
 DUAL_MB = 1
-# step 3b: the band ladder and the seeded graph cases
+# step 3b: the band ladder, the seeded graph cases (odd seeds close their
+# SNV bubbles with three parents) and the size of the timed batch
 WFA_H = (32, 128, 512)
 WFA_GRAPH_SEEDS = (0, 1, 2, 3)
+WFA_BATCH = 256
 BEAM_KERNELS = ("beam_select", "permute_update", "backtrace")
+
+# The least time the card could take for a kernel's work (`bound`): the
+# larger of its bytes over the memory rate and its int32 operations over
+# the int32 rate. H100 SXM: 3.35 TB/s (NVIDIA's data sheet); 132 SMs of 64
+# int32 lanes (the Hopper white paper) at the 1.98 GHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations per band cell of the WFA, counted from
+# wfa_forward_backward_plain: forward 14 (diagonal 3, deletion 1, min 2,
+# closure 4, read-range mask 4), backward 16 (mark and mask 3, chain_left
+# 6, diagonal test 4, deletion test 3)
+WFA_OPS_PER_CELL = 30
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_summary(build_log: str) -> str:
+    """Registers, spills and barriers of each compiled kernel in nvcc's
+    ``-Xptxas -v`` output, a template's arguments beside its name."""
+    import re
+    out, entry = [], ""
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            entry = f"<{','.join(args)}>" if args else ""
+        elif "registers" in line or "spill" in line:
+            out.append(f"{entry} {line.split(':', 1)[-1].strip()}".strip())
+    return " | ".join(out)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms and bound_by of work that moves ``nbytes`` (each input read
+    once, each output written once) and does ``ops`` int32 operations."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def beam_bounds(B: int, R: int, W: int, T: int) -> dict:
+    """Bounds of one launch of each beam kernel at (B, R, W), T columns:
+    beam_select reads δ [B, W, R] and two packed columns, rewrites cost,
+    hets and valid, writes one trace row and the gather's scratch; it
+    scores 4W candidates a row from three clamped sums over δ (8 operations
+    an element) and selects W of them (8 a candidate). permute_update
+    reads δ and writes the new δ, 3 operations an element. backtrace
+    follows one path a row: T parent and choice entries and skip flags
+    read, two haplotype bytes written a column, 8 operations a step."""
+    return {
+        "beam_select": bound(
+            4 * B * W * R + 2 * 9 * B * W + 8 * B * R + B
+            + 3 * B * W + 8 * B + 4 * B * W + 8 * B * R,
+            8 * B * W * R + 8 * 4 * B * W),
+        "permute_update": bound(8 * B * W * R + 6 * B * W + 8 * B * R,
+                                3 * B * W * R),
+        "backtrace": bound(3 * B * T + B * T + 8 * B + 2 * B * T, 8 * B * T),
+    }
 
 
 def nvidia_smi() -> str:
@@ -229,12 +299,16 @@ def check_kernels(device) -> dict:
                 lambda: beam.backtrace_plain(slot, p_tr[0], p_tr[1], skip)),
         }
         counts = kernels.launch_counts()
+        bounds = beam_bounds(B, R, W, T)
         for name, (kfn, pfn) in timings.items():
             ms, plain_ms = median_ms(kfn), median_ms(pfn)
             line[f"{name}_ms"] = ms
             line[f"{name}_plain_ms"] = plain_ms
+            line[f"{name}_bound_ms"] = bounds[name]["bound_ms"]
             if i == 0:
-                results[name].update(ms=ms, plain_ms=plain_ms)
+                # no single PyTorch call computes any of these functions
+                results[name].update(ms=ms, plain_ms=plain_ms,
+                                     **bounds[name], library_ms=None)
         if kernels.launch_counts() == counts:
             raise AssertionError("timing launched no kernel")
         log("kernel check " + json.dumps(line))
@@ -247,15 +321,15 @@ def check_kernels(device) -> dict:
 # ---------------------------------------------------------------------------
 # step 3b: the graph-WFA kernel against its plain version
 
-def wfa_graph_case(seed: int):
+def wfa_graph_case(seed: int, branches: int = 2):
     """A seeded graph of twelve bubbles (SNV, insertion with an empty
     reference branch, deletion with an empty alternate branch), each
-    closing in a node with two parents, and four reads: the reference
-    path, a mutated copy, an empty read and one whose kstar lies outside
-    the band at every rung."""
+    closing in a node with two parents (SNV bubbles with ``branches``
+    parents), and four reads: the reference path, a mutated copy, an empty
+    read and one whose kstar lies outside the band at every rung."""
     import numpy as np
 
-    from hiphase_tpu.align.wfa_graph import WFAGraph
+    from hiphase_tpu_torch.align.wfa_graph import WFAGraph
     rng = np.random.default_rng(seed)
     acgt = np.frombuffer(b"ACGT", np.uint8)
 
@@ -268,14 +342,14 @@ def wfa_graph_case(seed: int):
     for i in range(12):
         if i % 3 == 0:
             a = seq(1)
-            b = bytes([next(x for x in b"ACGT" if x != a[0])])
+            alts = [bytes([x]) for x in b"ACGT" if x != a[0]][:branches - 1]
         elif i % 3 == 1:
-            a, b = b"", seq(int(rng.integers(1, 6)))
+            a, alts = b"", [seq(int(rng.integers(1, 6)))]
         else:
-            a, b = seq(int(rng.integers(1, 6))), b""
-        branches = [graph.add_node(a, prev), graph.add_node(b, prev)]
+            a, alts = seq(int(rng.integers(1, 6))), [b""]
+        nodes = [graph.add_node(x, prev) for x in [a, *alts]]
         tail = seq(int(rng.integers(8, 30)))
-        prev = [graph.add_node(tail, branches)]
+        prev = [graph.add_node(tail, nodes)]
         ref += a + tail
     mutated = bytearray(ref)
     for j in rng.choice(len(ref), size=8, replace=False):
@@ -303,12 +377,12 @@ def wfa_inputs(graph, reads, device):
 def golden_window(meta):
     """The longest read among the first 200 of the golden dataset's first
     phase block, with its window graph as allele assignment builds it."""
-    from hiphase_tpu.core.reference_genome import ReferenceGenome
-    from hiphase_tpu.io.bam import cached_alignment
-    from hiphase_tpu.io.vcf import get_vcf_samples
-    from hiphase_tpu.phasing.block_gen import (
+    from hiphase_tpu_torch.core.reference_genome import ReferenceGenome
+    from hiphase_tpu_torch.io.bam import cached_alignment
+    from hiphase_tpu_torch.io.vcf import get_vcf_samples
+    from hiphase_tpu_torch.phasing.block_gen import (
         PhaseBlockIterator, filter_out_alignment_record)
-    from hiphase_tpu.phasing.phaser import _mark_tr_overlaps, load_variant_calls
+    from hiphase_tpu_torch.phasing.phaser import _mark_tr_overlaps, load_variant_calls
     from hiphase_tpu_torch.phasing.global_realign import read_window
     reference = ReferenceGenome.from_fasta(meta["fasta"])
     sample = get_vcf_samples(meta["vcf"])[0]
@@ -336,60 +410,138 @@ def golden_window(meta):
     return graph, read_align
 
 
+class WfaBatch:
+    """(graph, read) pairs packed and uploaded for one launch of the
+    batched WFA: one graph stream per pair, as allele assignment builds
+    them."""
+
+    def __init__(self, pairs, device):
+        import numpy as np
+        import torch
+
+        from hiphase_tpu_torch.align import wfa_device as wd
+        self.wd = wd
+        linear = {}
+        for g, _r in pairs:
+            if id(g) not in linear:
+                linear[id(g)] = wd._linearized(g)
+        b = wd.PairBatch([linear[id(g)] for g, _r in pairs],
+                         [bytes(r) for _g, r in pairs], list(range(len(pairs))))
+        self.batch = b
+        self.arrays = b.upload(device)
+        self.meta_np = b.meta(np.arange(b.n), [(0, b.n)])
+        self.meta = torch.from_numpy(self.meta_np).to(device)
+        self.out = dict(n_out=b.n, trav_len=int(b.N.sum()))
+        self.scratch = dict(scratch_pos=int(b.G.sum()),
+                            scratch_nodes=int(b.N.sum()),
+                            max_read_len=int(b.rlen.max()))
+
+    def kernel(self, H):
+        return self.wd.wfa_forward_backward_batched(
+            *self.arrays, self.meta, H, **self.out, **self.scratch)
+
+    def plain(self, H):
+        return self.wd.wfa_forward_backward_batched_plain(
+            *self.arrays, self.meta, H, **self.out)
+
+    def bound(self, H) -> dict:
+        """Bytes: the position streams (8 a position), parent tables, reads
+        and launch offsets in, score, in_band and traversed flags out;
+        operations: WFA_OPS_PER_CELL a band cell, G·(2H + 1) cells a pair."""
+        b = self.batch
+        nbytes = (8 * b.G.sum() + 8 * b.N.sum() * b.P + b.rlen.sum()
+                  + 4 * self.meta.numel() + 5 * b.n + b.N.sum())
+        return bound(float(nbytes),
+                     float(WFA_OPS_PER_CELL * b.G.sum() * (2 * H + 1)))
+
+    def pair(self, result, i):
+        """Pair i's (score, in_band, traversed) of a batch result."""
+        score, in_band, trav = result
+        off, n = int(self.meta_np[i, 11]), int(self.batch.N[i])
+        return score[i:i + 1], in_band[i:i + 1], trav[off:off + n]
+
+
 def check_wfa_kernel(device, window) -> dict:
-    """The WFA kernel against its plain version at every rung, on the
-    seeded graphs and the realistic window; times at the window."""
+    """The WFA kernel against its plain version at every rung, on one
+    ragged batch, and the batch's time; then times: the
+    window alone (a batch of one) and WFA_BATCH copies of it in one launch,
+    each beside its bound."""
     import torch
 
     from hiphase_tpu_torch.align import wfa_device as wd
 
-    def run_both(tensors, H, kw):
-        got = wd.wfa_forward_backward(*tensors, H=H, **kw)
-        want = wd.wfa_forward_backward_plain(*tensors, H=H, **kw)
-        torch.cuda.synchronize()
-        return got, want
-
-    err = 0
+    pairs, out_of_band = [], []
     for seed in WFA_GRAPH_SEEDS:
-        graph, reads = wfa_graph_case(seed)
-        ga, tensors, kw = wfa_inputs(graph, reads, device)
-        real = slice(0, ga.total_pos)
-        shapes = {"eps": bool((ga.pchar[real] < 0).any()),
-                  "join2": bool(((ga.par_idx >= 0).sum(1) >= 2).any())}
-        for H in WFA_H:
-            got, want = run_both(tensors, H, kw)
-            e = max_abs_err(got, want)
-            err = max(err, e)
-            log("wfa check " + json.dumps(
-                {"seed": seed, "H": H, "G": int(tensors[0].shape[0]),
-                 "reads": len(reads), "err": e, **shapes,
-                 "score": want[0].tolist(), "in_band": want[2].tolist()}))
-            if bool(want[2][3]):
-                raise AssertionError("the out-of-band read is in band")
-        if not all(shapes.values()):
-            raise AssertionError(f"graph case {seed} lacks a shape: {shapes}")
-
-    graph, read = window
-    ga, tensors, kw = wfa_inputs(graph, [read], device)
-    result = {}
+        graph, reads = wfa_graph_case(seed, branches=2 + seed % 2)
+        out_of_band.append(len(pairs) + 3)
+        pairs += [(graph, r) for r in reads]
+    pairs.append(window)
+    ragged = WfaBatch(pairs, device)
+    b = ragged.batch
+    log("wfa ragged batch " + json.dumps(
+        {"pairs": b.n, "G": b.G.tolist(), "N": b.N.tolist(), "P": b.P,
+         "read_len": b.rlen.tolist()}))
+    err = 0
+    reference = {}
     for H in WFA_H:
-        got, want = run_both(tensors, H, kw)
+        want = ragged.plain(H)
+        reference[H] = want
+        if any(bool(want[1][i]) for i in out_of_band):
+            raise AssertionError("an out-of-band read is in band")
+        got = ragged.kernel(H)
+        torch.cuda.synchronize()
         e = max_abs_err(got, want)
         err = max(err, e)
-        ms = median_ms(lambda: wd.wfa_forward_backward(*tensors, H=H, **kw),
-                       reps=5)
-        start, stop = (torch.cuda.Event(enable_timing=True) for _ in "ab")
-        start.record()
-        wd.wfa_forward_backward_plain(*tensors, H=H, **kw)
-        stop.record()
-        stop.synchronize()
-        plain_ms = start.elapsed_time(stop)
-        log("wfa window " + json.dumps(
-            {"H": H, "G": int(tensors[0].shape[0]), "read_len": len(read),
-             "nodes": ga.n_nodes, "spread": ga.spread, "err": e,
-             "score": int(want[0][0]), "in_band": bool(want[2][0]),
-             "ms": ms, "plain_ms": plain_ms}))
-        result = {"ms": ms, "plain_ms": plain_ms}  # the last rung, H = 512
+        log("wfa check " + json.dumps(
+            {"H": H, "shape": wd.kernel_shape(H), "err": e,
+             "score": want[0].tolist(), "in_band": want[1].tolist()}))
+        ms = median_ms(lambda: ragged.kernel(H), reps=3)
+        bd = ragged.bound(H)
+        log("wfa ragged launch " + json.dumps(
+            {"H": H, "shape": wd.kernel_shape(H), "ms": ms, **bd,
+             "bound_share": bd["bound_ms"] / ms}))
+
+    # the window alone, as one read per launch ran before
+    one = WfaBatch([window], device)
+    last = b.n - 1
+    result = {}
+    for H in WFA_H:
+        got = one.kernel(H)
+        e = max_abs_err(got, ragged.pair(reference[H], last))
+        err = max(err, e)
+        ms = median_ms(lambda: one.kernel(H), reps=5)
+        line = {"H": H, "shape": wd.kernel_shape(H), "G": int(one.batch.G[0]),
+                "read_len": int(one.batch.rlen[0]),
+                "nodes": int(one.batch.N[0]), "err": e,
+                "score": int(got[0][0]), "ms": ms, **one.bound(H)}
+        if H == WFA_H[-1]:
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            start.record()
+            one.plain(H)
+            stop.record()
+            stop.synchronize()
+            line["plain_ms"] = start.elapsed_time(stop)
+            result = {"ms": ms, "plain_ms": line["plain_ms"],
+                      **one.bound(H), "library_ms": None}
+        log("wfa window " + json.dumps(line))
+
+    # WFA_BATCH copies of the window in one launch
+    many = WfaBatch([window] * WFA_BATCH, device)
+    for H in WFA_H:
+        got = many.kernel(H)
+        want = one.kernel(H)
+        torch.cuda.synchronize()
+        for i in range(WFA_BATCH):
+            e = max_abs_err(many.pair(got, i), want)
+            err = max(err, e)
+        ms = median_ms(lambda: many.kernel(H), reps=3)
+        bd = many.bound(H)
+        log("wfa batch " + json.dumps(
+            {"H": H, "pairs": WFA_BATCH, "shape": wd.kernel_shape(H),
+             "ms": ms, "reads_per_s": WFA_BATCH / ms * 1e3, **bd,
+             "bound_share": bd["bound_ms"] / ms}))
+    del many
+    torch.cuda.empty_cache()
     if err:
         raise AssertionError(f"wfa_forward_backward disagrees with its "
                              f"plain version: max error {err}")
@@ -407,21 +559,21 @@ def run_cli(argv):
     return time.perf_counter() - t0, dict(cli.LAST_RUN_STATS)
 
 
-def load_golden_test():
-    """tests/test_e2e_golden.py, loaded by path: an installed package named
-    ``tests`` would shadow the repository's tests directory."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "e2e_golden", os.path.join(HERE, "tests", "test_e2e_golden.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 def build_golden(workdir: str) -> dict:
-    from hiphase_tpu.utils.simulate import build_benchmark_dataset
+    from hiphase_tpu_torch.utils import golden
+    from hiphase_tpu_torch.utils.simulate import build_benchmark_dataset
     return build_benchmark_dataset(os.path.join(workdir, "golden"),
-                                   **load_golden_test().DATASET_KW)
+                                   **golden.DATASET_KW)
+
+
+def wfa_summary(secs: float, stats: dict) -> str:
+    """The device-WFA run's wall time, WFA launches and pairs a launch."""
+    wfa = stats["wfa"]
+    return (f"device-WFA run {secs:.2f} s wall; {wfa['reads']} reads in "
+            f"{wfa['band_calls']} WFA launches, "
+            f"{wfa['pairs_per_launch']:.1f} pairs a launch (max "
+            f"{wfa['max_pairs_per_launch']}); certified {wfa['certified']}, "
+            f"uncertified {wfa['uncertified']}")
 
 
 def check_golden(workdir: str, meta: dict, wfa_engine: str,
@@ -430,7 +582,7 @@ def check_golden(workdir: str, meta: dict, wfa_engine: str,
     with the device WFA, every kernel must launch in the run and some
     reads must certify on the device at H = 512."""
     from hiphase_tpu_torch import kernels
-    golden = load_golden_test()
+    from hiphase_tpu_torch.utils import golden
     out = [os.path.join(workdir, f"golden.{wfa_engine}.{x}")
            for x in ("vcf.gz", "bam", "blocks.tsv")]
     kernels.reset_launch_counts()
@@ -441,13 +593,14 @@ def check_golden(workdir: str, meta: dict, wfa_engine: str,
                            "--wfa-engine", wfa_engine,
                            "--threads", str(threads)])
     launches = kernels.launch_counts()
-    digest = golden._digest(golden._normalize(*out))
-    want = json.loads(golden.GOLDEN.read_text())["sha256"]
+    digest = golden.digest(golden.normalize(*out))
+    want = golden.committed_sha256()
     log(f"golden (--wfa-engine {wfa_engine}): sha256 {digest} (committed "
         f"{want}), {secs:.2f} s, {json.dumps(stats)}")
     if digest != want:
         raise AssertionError("golden sha256 differs from the committed one")
     if wfa_engine == "device":
+        log("golden " + wfa_summary(secs, stats))
         missing = [k for k, n in launches.items() if n <= 0]
         if missing:
             raise AssertionError(f"kernels never launched on the dual-mode "
@@ -459,12 +612,12 @@ def check_golden(workdir: str, meta: dict, wfa_engine: str,
 
 
 def vcf_records(path):
-    from hiphase_tpu.io.vcf import VcfReader
+    from hiphase_tpu_torch.io.vcf import VcfReader
     return [r.serialize() for r in VcfReader(path)]
 
 
 def check_local_bench(workdir: str, host_engine: str, total_mb: int) -> dict:
-    from hiphase_tpu.utils.simulate import build_benchmark_dataset
+    from hiphase_tpu_torch.utils.simulate import build_benchmark_dataset
     from hiphase_tpu_torch import kernels
     t0 = time.perf_counter()
     meta = build_benchmark_dataset(
@@ -521,8 +674,9 @@ def check_local_bench(workdir: str, host_engine: str, total_mb: int) -> dict:
 
 def check_dual_bench(workdir: str, total_mb: int) -> dict:
     """bench_e2e.py --global's configuration with --wfa-engine device,
-    record-identical to --wfa-engine host; every kernel launched."""
-    from hiphase_tpu.utils.simulate import build_benchmark_dataset
+    record-identical to --wfa-engine host; every kernel launched, and a few
+    WFA launches per block; then the device-WFA run again, traced."""
+    from hiphase_tpu_torch.utils.simulate import build_benchmark_dataset
     from hiphase_tpu_torch import kernels
     t0 = time.perf_counter()
     meta = build_benchmark_dataset(
@@ -532,16 +686,19 @@ def check_dual_bench(workdir: str, total_mb: int) -> dict:
     log(f"dual bench dataset: {total_mb} Mb, {meta['n_het']} hets, "
         f"{meta['n_reads']} reads, built in {time.perf_counter() - t0:.1f} s")
 
-    def argv(wfa):
+    def argv(wfa, name=None):
+        name = name or wfa
         return ["--bam", meta["bam"], "--vcf", meta["vcf"],
                 "--reference", meta["fasta"], "--output-vcf",
-                os.path.join(workdir, f"dual.{wfa}.vcf.gz"),
-                "--blocks-file", os.path.join(workdir, f"dual.{wfa}.tsv"),
+                os.path.join(workdir, f"dual.{name}.vcf.gz"),
+                "--blocks-file", os.path.join(workdir, f"dual.{name}.tsv"),
                 "--engine", "cuda", "--threads", "2", "--wfa-engine", wfa]
 
     kernels.reset_launch_counts()
     dev_s, stats = run_cli(argv("device"))
     launches = kernels.launch_counts()
+    log("dual bench " + wfa_summary(dev_s, stats))
+    profiled(lambda: run_cli(argv("device", "traced")))
     host_s, host_stats = run_cli(argv("host"))
     same_vcf = (vcf_records(os.path.join(workdir, "dual.device.vcf.gz"))
                 == vcf_records(os.path.join(workdir, "dual.host.vcf.gz")))
@@ -567,7 +724,48 @@ def check_dual_bench(workdir: str, total_mb: int) -> dict:
     if missing:
         raise AssertionError(f"kernels never launched on the dual-mode "
                              f"path: {missing}")
+    wfa = stats["wfa"]
+    if 4 * wfa["band_calls"] > wfa["reads"]:
+        raise AssertionError(f"{wfa['band_calls']} WFA launches for "
+                             f"{wfa['reads']} reads: expected a few a block")
     return launches
+
+
+def profiled(fn):
+    """fn() under torch.profiler (CPU and CUDA activity); prints the device
+    time by kernel name and the union of device intervals against the
+    wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_name: dict[str, list] = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = by_name.setdefault(e.name, [0, 0.0])
+            t[0] += 1
+            t[1] += e.time_range.elapsed_us() / 1e3
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    log("profile " + json.dumps({
+        "wall_s": wall, "device_busy_s": busy / 1e6,
+        "device_busy_share": busy / 1e6 / wall,
+        "device_ms_by_name": {n: {"calls": c, "ms": ms}
+                              for n, (c, ms) in top}}))
+    return result
 
 
 def main() -> int:
@@ -586,7 +784,7 @@ def main() -> int:
     card = nvidia_smi()
 
     # 1. environment
-    from hiphase_tpu.io import native
+    from hiphase_tpu_torch.io import native
     host_engine = "native" if native.available() else "astar"
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -599,9 +797,7 @@ def main() -> int:
     built = kernels.build_all()
     log(f"built {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, b in built.items():
-        info = [x.strip() for x in b.log.splitlines()
-                if "registers" in x or "spill" in x]
-        log(f"  {name}: {b.library.name}; " + " | ".join(info))
+        log(f"  {name}: {b.library.name}; " + ptxas_summary(b.log))
 
     # 3. beam kernels against their plain versions
     checks = check_kernels(device)

@@ -1,19 +1,26 @@
-"""hiphase_tpu_torch — the phaser's device engine in PyTorch and CUDA.
+"""hiphase_tpu_torch — the phaser in PyTorch and CUDA.
 
-A second package beside ``hiphase_tpu`` (the JAX reference, which it never
-imports a JAX module of). The host layers — I/O, block generation, allele
-assignment, A*, finalize and the ordered writers — are JAX-free and are
-imported from ``hiphase_tpu``; this package supplies what runs on the card:
+A second package beside ``hiphase_tpu`` (the JAX reference). It imports
+nothing of ``hiphase_tpu``: the host layers — I/O (``io/``), variants and
+reads (``core/``), block generation, allele assignment and A*
+(``phasing/``), the ordered writers (``writers/``) — are this package's own
+copies of the reference's JAX-free modules, at the same relative paths and
+with the same behaviour. What runs on the card is this package's:
 
   phasing/beam.py          the lockstep beam (plain torch + kernel dispatch)
+  align/wfa_device.py      the banded graph WFA of dual mode (plain torch +
+                           kernel dispatch, the batched band ladder)
   kernels/                 nvcc build, ctypes bindings, launch counters
   csrc/*.cu                hand-written Hopper kernels (sm_90a)
   parallel/orchestrator.py batched device solver (buckets, tiles, escalation)
   parallel/engine_select.py  --engine auto resolution
-  phasing/native_beam.py   JAX-free twin of the native C++ beam engine
+  phasing/native_beam.py   the native C++ beam engine behind the solver interface
   cli.py                   ``python -m hiphase_tpu_torch.cli --engine cuda``
+
+The C++ host library (``native/libhiphase_native.so``) is loaded by path
+through ``io/native.py``; without it the host layers run in pure Python.
 """
 
-from hiphase_tpu.version import __version__
+from hiphase_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

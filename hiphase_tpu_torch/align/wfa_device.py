@@ -5,14 +5,22 @@ and the exactness argument): a banded edit-distance DP over the
 topologically linearized variant graph, run as a forward min-plus scan over
 the G positions of the graph, then a backward pass that marks every cell on
 any optimal path. Results are bit-identical to
-``hiphase_tpu.align.wfa_device.wfa_forward_backward``.
+``hiphase_tpu.align.wfa_device.wfa_forward_backward``, pair by pair.
 
-`wfa_forward_backward` runs the plain PyTorch version
-(`wfa_forward_backward_plain`) for tensors on the CPU and launches the
-hand-written kernel ``csrc/wfa_forward_backward.cu`` for tensors on a CUDA
-device, raising if it cannot. `align_reads_device` is the band ladder
-around it: H = 32, 128, 512, a read's result certified exact when
-``score + spread <= H``.
+The device function takes a ragged batch of (graph, read) pairs, each read
+against its own graph (`wfa_forward_backward_batched`). It runs the plain
+PyTorch version (`wfa_forward_backward_batched_plain`, a loop over the pairs
+of `wfa_forward_backward_plain`) for tensors on the CPU and launches the
+hand-written kernel ``csrc/wfa_forward_backward.cu`` (one CTA per pair) for
+tensors on a CUDA device, raising if it cannot. `wfa_forward_backward` is the
+JAX package's single-graph signature, a thin call of the batched one.
+
+`align_pairs_device` is the band ladder over a batch: H = 32 on every pair,
+then H = 128 on the pairs not certified exact (``score + spread <= H``),
+then H = 512; one launch per rung (and memory-sized sub-batch), one
+host→device copy of the batch and one of each rung's offsets, one
+device→host copy of each rung's results. `align_reads_device` is the same
+ladder for many reads against one graph.
 
 The host side (`GraphArrays`, `linearize_graph`, `_padded_arrays`,
 `H_LADDER`) is the JAX package's numpy code, re-homed because importing its
@@ -34,10 +42,29 @@ from hiphase_tpu_torch.phasing.beam import _check
 
 INF = 1 << 20
 
-# The kernel keeps a band row in one warp, C cells per lane, C one of these
-# (the smallest with 32·C >= 2H + 1).
-KERNEL_CELLS_PER_LANE = (3, 9, 17, 33)
-KERNEL_MAX_H = (32 * KERNEL_CELLS_PER_LANE[-1] - 1) // 2
+# CTA shapes the kernel is built for, (warps, cells per thread): a band row
+# of 2H + 1 cells is held as 32·warps·cells cells in registers. A band gets
+# the first of these that holds it (one warp up to H = 47, four warps of 3
+# cells up to H = 191, four warps of 9 cells up to H = 575): the fastest on
+# a batch of a few hundred windows at each rung of H_LADDER on an H100
+# (PERF.md).
+KERNEL_SHAPES = ((1, 3), (4, 3), (4, 9))
+KERNEL_MAX_H = (max(32 * w * c for w, c in KERNEL_SHAPES) - 1) // 2
+# a pair's read sits in shared memory when the batch's longest read is at
+# most this many bytes; longer reads are read from device memory
+READ_SMEM_MAX = 48 * 1024
+# a pair's row of the launch offsets (see hp_wfa_forward_backward)
+META_FIELDS = 12
+
+
+def kernel_shape(H: int) -> tuple[int, int]:
+    """(warps, cells per thread) of the CTA for band half-width H."""
+    wb = 2 * H + 1
+    for w, c in KERNEL_SHAPES:
+        if 32 * w * c >= wb:
+            return w, c
+    raise ValueError(f"no built CTA shape holds a band of {wb} cells "
+                     f"(H={H}); shapes: {KERNEL_SHAPES}")
 
 
 @dataclass
@@ -139,29 +166,280 @@ H_LADDER = (32, 128, 512)
 
 
 # ---------------------------------------------------------------------------
-# The banded forward/backward DP: wrapper, then its plain version.
+# A batch of (graph, read) pairs, packed on the host for one upload.
+#
+# A graph is its position stream, 8 bytes a position: (band center, code)
+# with code = char | eps << 8 | start << 9 | end << 10 | node << 11, and its
+# parent tables by node, [N, P] (a position's parents are those of its node
+# at the node's first position, and none elsewhere). The batch is one int32
+# buffer: every graph's stream, then the parent tables, then the reads as
+# bytes, each in a slot padded to 16 bytes.
+
+@dataclass
+class _Graph:
+    pos: np.ndarray             # [G, 2] int32
+    par_idx: np.ndarray         # [N, P] int32
+    par_shift: np.ndarray       # [N, P] int32
+    last_node: int
+    c_end: int
+    spread: int
+
+
+def _graph_record(pchar, pnode, pstart, pend, c_out, par_idx, par_shift,
+                  n_nodes: int, last_node: int, c_end: int,
+                  spread: int = 0) -> _Graph:
+    """A graph's padded arrays (`_padded_arrays`) in the batch layout."""
+    G = len(pchar)
+    if G < 2 or G % 2 or not 0 <= last_node < n_nodes or n_nodes >= 1 << 20:
+        raise ValueError(f"need an even G >= 2, 0 <= last_node < n_nodes "
+                         f"< 2^20 (G={G}, last_node={last_node}, "
+                         f"n_nodes={n_nodes})")
+    if (np.asarray(par_shift) < 0).any():
+        raise ValueError("par_shift must be >= 0 (parents end at or after "
+                         "their child's band center)")
+    pchar = np.asarray(pchar, np.int32)
+    pnode = np.asarray(pnode, np.int32)
+    pstart = np.asarray(pstart, bool)
+    code = ((pchar & 0xFF) | ((pchar < 0).astype(np.int32) << 8)
+            | (pstart.astype(np.int32) << 9)
+            | (np.asarray(pend, bool).astype(np.int32) << 10)
+            | (pnode << 11))
+    pos = np.stack([np.asarray(c_out, np.int32), code], 1).astype(np.int32)
+    P = par_idx.shape[1]
+    pidx = np.full((n_nodes, P), -1, np.int32)
+    psh = np.zeros((n_nodes, P), np.int32)
+    first = np.flatnonzero(pstart)
+    pidx[pnode[first]] = par_idx[first]
+    psh[pnode[first]] = par_shift[first]
+    return _Graph(pos, pidx, psh, int(last_node), int(c_end), int(spread))
+
+
+class PairBatch:
+    """Pairs (graph ``graph_of[b]``, ``reads[b]``) packed for one upload;
+    per-pair offsets into the packed arrays as numpy vectors."""
+
+    def __init__(self, graphs: list[_Graph], reads: list[bytes],
+                 graph_of: list[int]):
+        self.n = len(reads)
+        self.P = max(g.par_idx.shape[1] for g in graphs)
+        g_len = np.array([len(g.pos) for g in graphs], np.int64)
+        n_len = np.array([len(g.par_idx) for g in graphs], np.int64)
+        g_off = np.concatenate([[0], np.cumsum(g_len)[:-1]])
+        n_off = np.concatenate([[0], np.cumsum(n_len)[:-1]])
+        sg = np.asarray(graph_of, np.int64)
+        self.goff, self.G = g_off[sg], g_len[sg]
+        self.gnoff, self.N = n_off[sg], n_len[sg]
+        self.last_node = np.array([graphs[i].last_node for i in sg], np.int64)
+        self.c_end = np.array([graphs[i].c_end for i in sg], np.int64)
+        self.spread = np.array([graphs[i].spread for i in sg], np.int64)
+        self.rlen = np.array([len(r) for r in reads], np.int64)
+        slot = (np.maximum(self.rlen, 1) + 15) // 16 * 16
+        self.roff = np.concatenate([[0], np.cumsum(slot)[:-1]])
+        read_bytes = np.zeros(int(slot.sum()), np.uint8)
+        for off, r in zip(self.roff, reads):
+            read_bytes[off:off + len(r)] = np.frombuffer(bytes(r), np.uint8)
+
+        def padded(t, width, fill):
+            out = np.full((len(t), width), fill, np.int32)
+            out[:, :t.shape[1]] = t
+            return out
+
+        parts = [np.concatenate([g.pos for g in graphs]).ravel(),
+                 np.concatenate([padded(g.par_idx, self.P, -1)
+                                 for g in graphs]).ravel(),
+                 np.concatenate([padded(g.par_shift, self.P, 0)
+                                 for g in graphs]).ravel(),
+                 read_bytes.view(np.int32)]
+        # every section starts on a 16-byte boundary
+        parts = [np.pad(p, (0, -len(p) % 4)) for p in parts]
+        self.sections = np.cumsum([0] + [len(p) for p in parts])
+        self.flat = np.concatenate(parts)
+        if int(self.flat.size) >= 1 << 31:
+            raise ValueError("a WFA pair batch must hold < 2^31 words")
+
+    def upload(self, device: torch.device):
+        """(pos [ΣG, 2] int32, par_idx, par_shift [ΣN, P] int32, reads [R]
+        uint8) on ``device``, in one host→device copy."""
+        flat = torch.from_numpy(self.flat).to(device)
+        s = [int(x) for x in self.sections]
+        return (flat[s[0]:s[1]].view(-1, 2), flat[s[1]:s[2]].view(-1, self.P),
+                flat[s[2]:s[3]].view(-1, self.P),
+                flat[s[3]:s[4]].view(torch.uint8))
+
+    def need_bytes(self, H: int) -> np.ndarray:
+        """Device scratch of each pair at band H (`scratch_bytes`)."""
+        return scratch_bytes(self.G, self.N, H)
+
+    def meta(self, idx: np.ndarray, groups: list[tuple[int, int]]
+             ) -> np.ndarray:
+        """Launch offsets [len(idx), META_FIELDS] of pairs ``idx``: output
+        index and traversed offset over all of them, scratch offsets within
+        each launch group ``idx[lo:hi]``."""
+        m = np.zeros((len(idx), META_FIELDS), np.int64)
+        m[:, 0], m[:, 1] = self.goff[idx], self.G[idx]
+        m[:, 2], m[:, 3] = self.gnoff[idx], self.N[idx]
+        m[:, 4], m[:, 5] = self.roff[idx], self.rlen[idx]
+        m[:, 6], m[:, 7] = self.last_node[idx], self.c_end[idx]
+        for lo, hi in groups:
+            m[lo:hi, 8] = _exclusive(self.G[idx[lo:hi]])
+            m[lo:hi, 9] = _exclusive(self.N[idx[lo:hi]])
+        m[:, 10] = np.arange(len(idx))
+        m[:, 11] = _exclusive(self.N[idx])
+        if m.max(initial=0) >= 1 << 31:
+            raise ValueError("WFA launch offsets exceed int32")
+        return m.astype(np.int32)
+
+
+def scratch_bytes(positions, nodes, H: int):
+    """Device scratch of the DP for ``positions`` graph positions and
+    ``nodes`` nodes at band H: out-columns at every position, in-columns
+    at every node (rows of 32·warps·cells int32 cells), end columns (int32)
+    and their marks (uint8) at every node, 2H + 1 cells each."""
+    warps, cells = kernel_shape(H)
+    rw = 32 * warps * cells
+    return 4 * rw * (positions + nodes) + 5 * nodes * (2 * H + 1)
+
+
+def _exclusive(x: np.ndarray) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(x)[:-1]])
+
+
+def _free_bytes(dev: torch.device) -> int:
+    free, _total = torch.cuda.mem_get_info(dev)
+    return free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+
+
+# ---------------------------------------------------------------------------
+# The banded forward/backward DP: wrappers, then the plain versions.
+
+def wfa_forward_backward_batched(pos, par_idx, par_shift, reads, meta, H: int,
+                                 *, n_out: int, trav_len: int,
+                                 scratch_pos: int, scratch_nodes: int,
+                                 max_read_len: int, out=None):
+    """Banded forward DP + backward optimal-path marking over a ragged batch
+    of (graph, read) pairs.
+
+    Args, all on one device (the layout of `PairBatch`): pos [ΣG, 2] int32,
+    par_idx / par_shift [ΣN, P] int32, reads [R] uint8, meta [B, 12] int32
+    (`PairBatch.meta`); H = band half-width. The host-known sizes: n_out and
+    trav_len size the outputs (max output index + 1, max traversed offset +
+    N), scratch_pos / scratch_nodes the scratch (ΣG and ΣN over the pairs
+    of this call), max_read_len the longest read. ``out`` = (score,
+    in_band, trav) to write into instead of new tensors. The CTA shape
+    follows from H (`kernel_shape`).
+
+    Returns (score [n_out] int32, in_band [n_out] bool, trav [trav_len]
+    bool): pair b's results at meta[b, 10] and its nodes' traversed flags
+    at meta[b, 11]. A score of >= INF means no in-band alignment.
+
+    CPU tensors run `wfa_forward_backward_batched_plain`; CUDA tensors
+    launch the kernel (one CTA per pair) or raise.
+    """
+    if meta.device.type == "cpu":
+        return wfa_forward_backward_batched_plain(
+            pos, par_idx, par_shift, reads, meta, H, n_out=n_out,
+            trav_len=trav_len, out=out)
+    dev = meta.device
+    B = meta.shape[0]
+    P = par_idx.shape[1] if par_idx.dim() == 2 else -1
+    for name, t, dt, shape in (
+            ("pos", pos, torch.int32, (pos.shape[0], 2)),
+            ("par_idx", par_idx, torch.int32, (par_idx.shape[0], P)),
+            ("par_shift", par_shift, torch.int32, par_idx.shape),
+            ("reads", reads, torch.uint8, (reads.shape[0],)),
+            ("meta", meta, torch.int32, (B, META_FIELDS))):
+        _check(name, t, dt, shape, dev)
+    if not 0 <= H <= KERNEL_MAX_H:
+        raise ValueError(f"wfa_forward_backward: H={H} is outside "
+                         f"[0, {KERNEL_MAX_H}]")
+    if P < 1 or pos.data_ptr() % 16 or reads.data_ptr() % 16:
+        raise ValueError("need P >= 1 and 16-byte aligned pos and reads")
+    warps, cells = kernel_shape(H)
+    wb = 2 * H + 1
+    rw = 32 * warps * cells
+    if out is None:
+        out = (torch.empty(n_out, dtype=torch.int32, device=dev),
+               torch.empty(n_out, dtype=torch.bool, device=dev),
+               torch.empty(trav_len, dtype=torch.bool, device=dev))
+    score, in_band, trav = out
+    _check("score", score, torch.int32, (n_out,), dev)
+    _check("in_band", in_band, torch.bool, (n_out,), dev)
+    _check("trav", trav, torch.bool, (trav_len,), dev)
+    if B == 0:
+        return out
+    need = scratch_bytes(scratch_pos, scratch_nodes, H)
+    free = _free_bytes(dev)
+    if need > free:
+        raise MemoryError(f"wfa_forward_backward needs {need} bytes of "
+                          f"scratch for {B} pairs (ΣG, ΣN, Wb) = "
+                          f"({scratch_pos}, {scratch_nodes}, {wb}); "
+                          f"{free} are free on {dev}")
+    cols_out = torch.empty((scratch_pos, rw), dtype=torch.int32, device=dev)
+    cols_in = torch.empty((scratch_nodes, rw), dtype=torch.int32, device=dev)
+    endcols = torch.empty((scratch_nodes, wb), dtype=torch.int32, device=dev)
+    mark_end = torch.empty((scratch_nodes, wb), dtype=torch.uint8, device=dev)
+    read_smem = min(_pad_up(max(max_read_len, 1), 16), READ_SMEM_MAX)
+    kernels.WFA_FORWARD_BACKWARD.launch(
+        pos.data_ptr(), par_idx.data_ptr(), par_shift.data_ptr(),
+        reads.data_ptr(), meta.data_ptr(), B, P, H, warps, cells, read_smem,
+        cols_in.data_ptr(), cols_out.data_ptr(), endcols.data_ptr(),
+        mark_end.data_ptr(), score.data_ptr(), in_band.data_ptr(),
+        trav.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def wfa_forward_backward_batched_plain(pos, par_idx, par_shift, reads, meta,
+                                       H: int, *, n_out: int, trav_len: int,
+                                       out=None):
+    """Plain PyTorch `wfa_forward_backward_batched`: each pair's slice of
+    the batch, unpacked to the JAX package's single-graph arrays, through
+    `wfa_forward_backward_plain`."""
+    dev = meta.device
+    if out is None:
+        out = (torch.full((n_out,), INF, dtype=torch.int32, device=dev),
+               torch.zeros(n_out, dtype=torch.bool, device=dev),
+               torch.zeros(trav_len, dtype=torch.bool, device=dev))
+    score, in_band, trav = out
+    P = par_idx.shape[1]
+    for row in meta.tolist():
+        goff, G, gnoff, N, roff, rlen, last, cend, _s, _n, oi, toff = row
+        c_out = pos[goff:goff + G, 0]
+        code = pos[goff:goff + G, 1]
+        pchar = torch.where((code >> 8) & 1 == 1, -1, code & 0xFF)
+        pstart = (code >> 9) & 1 == 1
+        pend = (code >> 10) & 1 == 1
+        pnode = code >> 11
+        first = pnode[pstart].long()
+        pidx = torch.full((G, P), -1, dtype=torch.int32, device=dev)
+        psh = torch.zeros((G, P), dtype=torch.int32, device=dev)
+        pidx[pstart] = par_idx[gnoff:gnoff + N][first]
+        psh[pstart] = par_shift[gnoff:gnoff + N][first]
+        read = torch.zeros((1, max(rlen, 1)), dtype=torch.int32, device=dev)
+        read[0, :rlen] = reads[roff:roff + rlen].to(torch.int32)
+        s, t, ib = wfa_forward_backward_plain(
+            pchar.to(torch.int32), pnode, pstart, pend, c_out, pidx, psh,
+            read, torch.tensor([rlen], dtype=torch.int32, device=dev), H, N,
+            last, cend)
+        score[oi], in_band[oi] = s[0], ib[0]
+        trav[toff:toff + N] = t[0]
+    return out
+
 
 def wfa_forward_backward(pchar, pnode, pstart, pend, c_out, par_idx,
                          par_shift, reads, read_len, H: int, n_nodes: int,
                          last_node: int, c_end: int):
-    """Banded forward DP + backward optimal-path marking.
+    """Banded forward DP + backward optimal-path marking of B reads against
+    one graph — the JAX package's signature, as one batch of B pairs.
 
     Args: the graph position arrays of `_padded_arrays` (pchar, pnode,
     c_out [G] int32, pstart, pend [G] bool, par_idx, par_shift [G, P]
-    int32, with every shift >= 0 as `linearize_graph` makes them), reads
-    [B, Lr] int32 (padded, Lr >= 1), read_len [B] int32, all on one device;
-    H = band half-width; n_nodes = rows of the end-column buffer.
+    int32, with every shift >= 0 as `linearize_graph` makes them, G even),
+    reads [B, Lr] int32 (padded, Lr >= 1), read_len [B] int32, all on one
+    device; H = band half-width; n_nodes = rows of the end-column buffer.
 
     Returns (score [B] int32, traversed [B, n_nodes] bool, in_band [B]
     bool). A score of >= INF means no in-band alignment.
-
-    CPU tensors run `wfa_forward_backward_plain`; CUDA tensors launch the
-    kernel (one warp per read row) or raise.
     """
-    if reads.device.type == "cpu":
-        return wfa_forward_backward_plain(
-            pchar, pnode, pstart, pend, c_out, par_idx, par_shift, reads,
-            read_len, H, n_nodes, last_node, c_end)
     dev = reads.device
     B, Lr = reads.shape
     G = pchar.shape[0]
@@ -177,51 +455,29 @@ def wfa_forward_backward(pchar, pnode, pstart, pend, c_out, par_idx,
             ("reads", reads, torch.int32, (B, Lr)),
             ("read_len", read_len, torch.int32, (B,))):
         _check(name, t, dt, shape, dev)
-    if not 0 <= H <= KERNEL_MAX_H:
-        raise ValueError(f"wfa_forward_backward keeps a band row in one "
-                         f"warp ({32 * KERNEL_CELLS_PER_LANE[-1]} cells at "
-                         f"most): H={H} is outside [0, {KERNEL_MAX_H}]")
-    if G < 1 or Lr < 1 or P < 1 or not 0 <= last_node < n_nodes:
-        raise ValueError(f"need G, Lr, P >= 1 and 0 <= last_node < n_nodes "
-                         f"(G={G}, Lr={Lr}, P={P}, last_node={last_node}, "
-                         f"n_nodes={n_nodes})")
-    Wb = 2 * H + 1
-    cells = next(c for c in KERNEL_CELLS_PER_LANE if 32 * c >= Wb)
-    score = torch.empty(B, dtype=torch.int32, device=dev)
-    trav = torch.empty((B, n_nodes), dtype=torch.bool, device=dev)
-    in_band = torch.empty(B, dtype=torch.bool, device=dev)
-    if B == 0:
-        return score, trav, in_band
-    # the forward columns the backward pass reads (lane-major, 32·C cells
-    # each), and the per-node end columns and their marks
-    need = 8 * G * B * 32 * cells + 5 * B * n_nodes * Wb
-    free, _total = torch.cuda.mem_get_info(dev)
-    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    if need > free:
-        raise MemoryError(f"wfa_forward_backward needs {need} bytes of "
-                          f"scratch for (G, B, Wb) = ({G}, {B}, {Wb}); "
-                          f"{free} are free on {dev}")
-    cols_in = torch.empty((G, B, 32 * cells), dtype=torch.int32, device=dev)
-    cols_out = torch.empty((G, B, 32 * cells), dtype=torch.int32, device=dev)
-    endcols = torch.empty((B, n_nodes, Wb), dtype=torch.int32, device=dev)
-    mark_end = torch.empty((B, n_nodes, Wb), dtype=torch.bool, device=dev)
-    kernels.WFA_FORWARD_BACKWARD.launch(
-        pchar.data_ptr(), pnode.data_ptr(), pstart.data_ptr(),
-        pend.data_ptr(), c_out.data_ptr(), par_idx.data_ptr(),
-        par_shift.data_ptr(), reads.data_ptr(), read_len.data_ptr(),
-        G, P, B, Lr, H, n_nodes, int(last_node), int(c_end), cells,
-        cols_in.data_ptr(), cols_out.data_ptr(), endcols.data_ptr(),
-        mark_end.data_ptr(), score.data_ptr(), trav.data_ptr(),
-        in_band.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    return score, trav, in_band
+    if Lr < 1 or P < 1:
+        raise ValueError(f"need Lr, P >= 1 (Lr={Lr}, P={P})")
+    host = [t.cpu().numpy() for t in (pchar, pnode, pstart, pend, c_out,
+                                       par_idx, par_shift)]
+    graph = _graph_record(*host, n_nodes, last_node, c_end)
+    rl = read_len.cpu().numpy()
+    rd = reads.cpu().numpy()
+    batch = PairBatch([graph], [rd[b, :rl[b]].astype(np.uint8).tobytes()
+                                for b in range(B)], [0] * B)
+    idx = np.arange(B)
+    meta = torch.from_numpy(batch.meta(idx, [(0, B)])).to(dev)
+    score, in_band, trav = wfa_forward_backward_batched(
+        *batch.upload(dev), meta, H, n_out=B, trav_len=B * n_nodes,
+        scratch_pos=B * G, scratch_nodes=B * n_nodes,
+        max_read_len=int(rl.max(initial=0)))
+    return score, trav.view(B, n_nodes), in_band
 
 
 def wfa_forward_backward_plain(pchar, pnode, pstart, pend, c_out, par_idx,
                                par_shift, reads, read_len, H: int,
                                n_nodes: int, last_node: int, c_end: int):
-    """Plain PyTorch `wfa_forward_backward` (the JAX scan, step for step):
-    a Python loop over the G positions, forward and then backward, with
+    """Plain PyTorch single-graph DP (the JAX scan, step for step): a
+    Python loop over the G positions, forward and then backward, with
     [B, Wb] tensor ops inside, on the tensors' device."""
     dev = reads.device
     B, Lr = reads.shape
@@ -353,27 +609,34 @@ def wfa_forward_backward_plain(pchar, pnode, pstart, pend, c_out, par_idx,
 class WfaCounters:
     """Work of the device WFA over one run; shared by the prepare threads.
 
-    ``band_calls`` counts calls of `wfa_forward_backward` (kernel launches
-    when the device is a CUDA device); ``h2d_copies`` counts host→device
-    copies (none on the CPU). Both are kept apart from the beam solver's
-    counters."""
+    ``band_calls`` counts launches of the batched DP (kernel launches when
+    the device is a CUDA device), ``pair_launches`` the pairs they carried
+    (``pairs_per_launch`` = their mean, with ``max_pairs_per_launch``);
+    ``h2d_copies`` counts host→device copies (none on the CPU). All are
+    kept apart from the beam solver's counters."""
 
     reads: int = 0                  # reads submitted to the ladder
     certified: dict = field(default_factory=dict)   # H → reads certified
     uncertified: int = 0            # left to the host aligner
     band_calls: int = 0
+    pair_launches: int = 0
+    max_pairs_per_launch: int = 0
     h2d_copies: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 
     def add(self, reads: int, certified: dict, uncertified: int,
-            band_calls: int, h2d_copies: int) -> None:
+            band_calls: int, pair_launches: int, max_pairs: int,
+            h2d_copies: int) -> None:
         with self._lock:
             self.reads += reads
             for h, n in certified.items():
                 self.certified[h] = self.certified.get(h, 0) + n
             self.uncertified += uncertified
             self.band_calls += band_calls
+            self.pair_launches += pair_launches
+            self.max_pairs_per_launch = max(self.max_pairs_per_launch,
+                                            max_pairs)
             self.h2d_copies += h2d_copies
 
     def as_dict(self) -> dict:
@@ -383,6 +646,10 @@ class WfaCounters:
                                   sorted(self.certified.items())},
                     "uncertified": self.uncertified,
                     "band_calls": self.band_calls,
+                    "pairs_per_launch": (
+                        self.pair_launches / self.band_calls
+                        if self.band_calls else 0.0),
+                    "max_pairs_per_launch": self.max_pairs_per_launch,
                     "h2d_copies": self.h2d_copies}
 
 
@@ -395,74 +662,114 @@ def _own_stream(device: torch.device):
     return torch.cuda.stream(torch.cuda.Stream(device))
 
 
-def _to_device(graph_arrays, device: torch.device) -> list[torch.Tensor]:
-    """The seven padded graph arrays on ``device`` in one host→device copy
-    of one int32 buffer; the two flag arrays become bool there."""
-    flat = np.concatenate([a.astype(np.int32).ravel() for a in graph_arrays])
-    flat_d = torch.from_numpy(flat).to(device)
-    out, at = [], 0
-    for a in graph_arrays:
-        t = flat_d[at:at + a.size].view(a.shape)
-        out.append(t.bool() if a.dtype == bool else t)
-        at += a.size
-    return out
+_SCRATCH_LOCK = threading.Lock()
+
+
+def _launch_groups(need: np.ndarray, budget: int | None
+                   ) -> list[tuple[int, int]]:
+    """Consecutive groups of pairs whose scratch fits ``budget`` bytes
+    (each group at least one pair; None: one group)."""
+    if budget is None:
+        return [(0, len(need))]
+    groups, lo, acc = [], 0, 0
+    for i, n in enumerate(need.tolist()):
+        if i > lo and acc + n > budget:
+            groups.append((lo, i))
+            lo, acc = i, 0
+        acc += n
+    groups.append((lo, len(need)))
+    return groups
+
+
+def align_pairs_device(pairs: list[tuple], device: torch.device,
+                       h_ladder=H_LADDER,
+                       counters: WfaCounters | None = None):
+    """Align a batch of (graph, read) pairs on ``device``, each read
+    against its own graph, climbing the band ladder together.
+
+    Returns a list parallel to ``pairs``: (score, traversed_nodes) for
+    pairs whose banded result is certified exact (score + spread <= H), or
+    None for pairs the ladder could not certify — the caller falls back to
+    the host aligner for those. Scores above the graph's max edit distance
+    are returned as-is; the caller applies the reference's max-ED failure
+    semantics. The results are those of aligning each pair alone.
+    """
+    batch = PairBatch([_linearized(g) for g, _r in pairs],
+                      [r for _g, r in pairs], list(range(len(pairs))))
+    return _ladder(batch, device, h_ladder, counters)
 
 
 def align_reads_device(graph, reads: list[bytes], device: torch.device,
                        h_ladder=H_LADDER,
                        counters: WfaCounters | None = None):
-    """Align a batch of reads against ONE graph on ``device``.
+    """`align_pairs_device` for many reads against ONE graph."""
+    batch = PairBatch([_linearized(graph)], list(reads), [0] * len(reads))
+    return _ladder(batch, device, h_ladder, counters)
 
-    Returns a list parallel to ``reads``: (score, traversed_nodes) for
-    reads whose banded result is certified exact (score + spread <= H), or
-    None for reads the ladder could not certify — the caller falls back to
-    the host aligner for those. Scores above graph.max_edit_distance are
-    returned as-is; the caller applies the reference's max-ED failure
-    semantics.
-    """
+
+def _linearized(graph) -> _Graph:
     ga = linearize_graph(graph)
-    *graph_arrays, N = _padded_arrays(ga)
+    *arrays, n_nodes = _padded_arrays(ga)
+    return _graph_record(*arrays, n_nodes, ga.last_node, ga.c_end, ga.spread)
+
+
+def _ladder(batch: PairBatch, device: torch.device, h_ladder,
+            counters: WfaCounters | None):
     on_card = device.type != "cpu"
-    results: list = [None] * len(reads)
-    pending = list(range(len(reads)))
+    results: list = [None] * batch.n
+    pending = np.arange(batch.n)
     certified: dict[int, int] = {}
-    calls = copies = 0
+    calls = copies = pair_launches = max_pairs = 0
     with _own_stream(device):
-        dev_graph = _to_device(graph_arrays, device)
+        arrays = batch.upload(device)
         copies += on_card
         for H in h_ladder:
-            if not pending:
+            if not len(pending):
                 break
-            Lr = _pad_up(max(len(reads[i]) for i in pending), 256)
-            # one copy: read lengths [B], then the padded reads [B, Lr]
-            flat = np.zeros(len(pending) * (Lr + 1), np.int32)
-            rl = flat[:len(pending)]
-            arr = flat[len(pending):].reshape(len(pending), Lr)
-            for bi, ri in enumerate(pending):
-                r = reads[ri]
-                arr[bi, :len(r)] = np.frombuffer(bytes(r), np.uint8)
-                rl[bi] = len(r)
-            flat_d = torch.from_numpy(flat).to(device)
-            copies += on_card
-            score, trav, _in_band = wfa_forward_backward(
-                *dev_graph, flat_d[len(pending):].view(len(pending), Lr),
-                flat_d[:len(pending)], H=H, n_nodes=N,
-                last_node=ga.last_node, c_end=ga.c_end)
-            calls += 1
-            score = score.cpu().numpy()
-            trav = trav.cpu().numpy()
+            n = len(pending)
+            n_trav = int(batch.N[pending].sum())
+            # one buffer for the rung's results: score, in_band, trav
+            out = torch.empty(5 * n + n_trav, dtype=torch.uint8,
+                              device=device)
+            views = (out[:4 * n].view(torch.int32),
+                     out[4 * n:5 * n].view(torch.bool),
+                     out[5 * n:].view(torch.bool))
+            # ladders of other threads size their scratch from the same free
+            # memory: one sizes and allocates at a time
+            with _SCRATCH_LOCK if on_card else contextlib.nullcontext():
+                need = batch.need_bytes(H)[pending]
+                groups = _launch_groups(
+                    need, _free_bytes(device) // 2 if on_card else None)
+                meta = torch.from_numpy(batch.meta(pending, groups)).to(
+                    device)
+                copies += on_card
+                for lo, hi in groups:
+                    idx = pending[lo:hi]
+                    wfa_forward_backward_batched(
+                        *arrays, meta[lo:hi], H, n_out=n, trav_len=n_trav,
+                        scratch_pos=int(batch.G[idx].sum()),
+                        scratch_nodes=int(batch.N[idx].sum()),
+                        max_read_len=int(batch.rlen[idx].max()), out=views)
+                    calls += 1
+                    pair_launches += hi - lo
+                    max_pairs = max(max_pairs, hi - lo)
+            host = out.cpu().numpy()
+            score = host[:4 * n].view(np.int32)
+            trav = host[5 * n:]
+            toff = _exclusive(batch.N[pending])
             nxt = []
-            for bi, ri in enumerate(pending):
+            for bi, pi in enumerate(pending.tolist()):
                 s = int(score[bi])
-                if s < INF and s + ga.spread <= H:
-                    results[ri] = (s, [int(x)
-                                       for x in np.flatnonzero(trav[bi])])
+                if s < INF and s + int(batch.spread[pi]) <= H:
+                    t = trav[toff[bi]:toff[bi] + batch.N[pi]]
+                    results[pi] = (s, [int(x) for x in np.flatnonzero(t)])
                     certified[H] = certified.get(H, 0) + 1
                 else:
-                    nxt.append(ri)
-            pending = nxt
+                    nxt.append(pi)
+            pending = np.asarray(nxt, np.int64)
     if counters is not None:
-        counters.add(reads=len(reads), certified=certified,
+        counters.add(reads=batch.n, certified=certified,
                      uncertified=len(pending), band_calls=calls,
+                     pair_launches=pair_launches, max_pairs=max_pairs,
                      h2d_copies=copies)
     return results

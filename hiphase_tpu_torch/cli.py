@@ -1,6 +1,7 @@
 """CLI of the torch port — ``python -m hiphase_tpu_torch.cli``.
 
-The flag surface is ``hiphase_tpu.cli``'s, with ``--engine
+The flag surface is the reference CLI's (``hiphase_tpu.cli``: the same
+flags, defaults and settings checks, copied here), with ``--engine
 {auto,cuda,native,astar}``: ``cuda`` is the batched device engine on the
 hand-written kernels. The pipeline is the JAX package's single-process
 path: streaming block generation, host prepare on a thread pool, the
@@ -21,7 +22,9 @@ Differences from ``hiphase_tpu.cli``, all deliberate:
 
 from __future__ import annotations
 
+import argparse
 import logging
+import os
 import queue
 import sys
 import threading
@@ -29,34 +32,175 @@ import time
 
 import torch
 
-from hiphase_tpu.cli import (
-    U64_MAX, check_settings, global_realignment_config)
-from hiphase_tpu.cli import build_parser as reference_parser
-from hiphase_tpu.version import full_version
 from hiphase_tpu_torch import kernels
 from hiphase_tpu_torch.parallel.engine_select import ENGINES, choose_engine
+from hiphase_tpu_torch.version import full_version
 
 logger = logging.getLogger("hiphase_tpu_torch")
+
+U64_MAX = 2**63 - 1
 
 # telemetry of the last run in this process (benches, tests, chip_smoke):
 # engine, device, solver and device-transfer counters, kernel launches
 LAST_RUN_STATS: dict = {}
 
 
-def build_parser():
-    """``hiphase_tpu.cli``'s flag surface with this package's engines."""
-    p = reference_parser()
-    p.prog = "hiphase-tpu-torch"
-    p.description = ("Joint phaser for small, structural and tandem-repeat "
-                     "variants from HiFi BAMs (PyTorch/CUDA device engine)")
-    engine = next(a for a in p._actions if a.dest == "engine")
-    engine.choices = ENGINES
-    engine.help = ("Phasing engine: 'cuda' = batched device beam engine on "
-                   "the CUDA kernels; 'native' = C++ host beam engine; "
-                   "'astar' = host A* oracle; 'auto' (default) = cuda when "
-                   "a CUDA device is present, else native, else astar. All "
-                   "engines produce identical output.")
+def build_parser() -> argparse.ArgumentParser:
+    """Flag surface (ref: cli.rs:28-239) with this package's engines."""
+    p = argparse.ArgumentParser(
+        prog="hiphase-tpu-torch",
+        description="Joint phaser for small, structural and tandem-repeat "
+                    "variants from HiFi BAMs (PyTorch/CUDA device engine)")
+    p.add_argument("--version", action="version", version=full_version())
+    p.add_argument("-v", "--verbose", action="count", default=0,
+                   help="Enable verbose output (-vv for trace)")
+
+    io = p.add_argument_group("Input/Output")
+    io.add_argument("--bam", dest="bams", action="append", default=[],
+                    required=True, help="Input alignment file (indexed BAM)")
+    io.add_argument("--output-bam", dest="output_bams", action="append",
+                    default=[], help="Output haplotagged alignment file")
+    io.add_argument("--vcf", dest="vcfs", action="append", default=[],
+                    required=True, help="Input variant file (indexed vcf.gz)")
+    io.add_argument("--output-vcf", dest="output_vcfs", action="append",
+                    default=[], required=True, help="Output phased variant file")
+    io.add_argument("-r", "--reference", required=True,
+                    help="Reference FASTA file")
+    io.add_argument("-s", "--sample-name", dest="sample_names",
+                    action="append", default=[],
+                    help="Sample name to phase (default: first in VCF)")
+    io.add_argument("--ignore-read-groups", action="store_true",
+                    help="Ignore BAM read groups (single sample only)")
+    io.add_argument("--summary-file", help="Summary statistics output (tsv/csv)")
+    io.add_argument("--stats-file", help="Algorithm statistics output (tsv/csv)")
+    io.add_argument("--blocks-file", help="Phase block output (tsv/csv)")
+    io.add_argument("--haplotag-file", help="Haplotag output (tsv/csv)")
+    io.add_argument("--io-threads", type=int, default=None,
+                    help="I/O threads (default: min(threads, 4))")
+    io.add_argument("--csi-index", action="store_true",
+                    help="Use CSI indexes for outputs")
+
+    p.add_argument("-t", "--threads", type=int, default=1,
+                   help="Number of host threads")
+    p.add_argument("--engine", choices=ENGINES, default="auto",
+                   help="Phasing engine: 'cuda' = batched device beam engine "
+                        "on the CUDA kernels; 'native' = C++ host beam "
+                        "engine; 'astar' = host A* oracle; 'auto' (default) "
+                        "= cuda when a CUDA device is present, else native, "
+                        "else astar. All engines produce identical output.")
+    p.add_argument("--beam-width", type=int, default=None,
+                   help="TPU engine fast beam width; blocks not provably "
+                        "optimal at this width re-solve at the full "
+                        "--phase-min-queue-size width (default: solve "
+                        "directly at the full width)")
+    p.add_argument("--batch-size", type=int, default=64,
+                   help="TPU engine blocks per device batch (cap; the "
+                        "per-bucket defaults are sized to the measured "
+                        "kernel sweet spot)")
+
+    filt = p.add_argument_group("Variant Filtering")
+    filt.add_argument("--min-vcf-qual", dest="min_variant_quality", type=int,
+                      default=0, help="Minimum GQ to include a variant")
+    filt.add_argument("--min-mapq", dest="min_mapping_quality", type=int,
+                      default=5, help="Minimum MAPQ to include a read")
+    filt.add_argument("--min-matched-alleles", type=int, default=2,
+                      help="Minimum matched alleles for a phasing read")
+
+    bg = p.add_argument_group("Phase Block Generation")
+    bg.add_argument("--min-spanning-reads", type=int, default=1,
+                    help="Minimum reads to span two loci to join them")
+    bg.add_argument("--no-supplemental-joins", dest="disable_supplemental_joins",
+                    action="store_true",
+                    help="Disable supplemental-mapping block joins")
+    bg.add_argument("--phase-singletons", action="store_true",
+                    help="Phase blocks with a single variant")
+
+    aa = p.add_argument_group("Allele Assignment")
+    aa.add_argument("--max-reference-buffer", dest="reference_buffer",
+                    type=int, default=15,
+                    help="Reference context around alleles (bp)")
+    aa.add_argument("--disable-global-realignment", action="store_true",
+                    help="Local realignment only")
+    aa.add_argument("--global-realignment-max-ed", dest="max_edit_distance",
+                    type=int, default=500,
+                    help="Max edit distance before local fallback")
+    aa.add_argument("--global-pruning-distance", dest="wfa_prune_distance",
+                    type=int, default=500,
+                    help="WFA wavefront prune distance (0 = off)")
+    aa.add_argument("--max-global-failure-ratio", dest="global_failure_ratio",
+                    type=float, default=0.5,
+                    help="Failure ratio before block-level local fallback")
+    aa.add_argument("--global-failure-count", dest="global_failure_minimum",
+                    type=int, default=50,
+                    help="Minimum failures before the ratio applies")
+    aa.add_argument("--wfa-engine", choices=["host", "device"],
+                    default="host",
+                    help="Graph-WFA aligner for global realignment: 'host' "
+                         "(C++ wavefront) or 'device' (accelerator banded-DP"
+                         " kernel; uncertifiable reads fall back per-read)")
+
+    ph = p.add_argument_group("Phasing")
+    ph.add_argument("--phase-min-queue-size", dest="phase_min_queue_size",
+                    type=int, default=1000, help="Minimum queue/beam size")
+    ph.add_argument("--phase-queue-increment", dest="phase_queue_increment",
+                    type=int, default=3,
+                    help="Queue growth per variant")
+
+    dbg = p.add_argument_group("Debug")
+    dbg.add_argument("--skip", type=int, default=0, help=argparse.SUPPRESS)
+    dbg.add_argument("--take", type=int, default=0, help=argparse.SUPPRESS)
     return p
+
+
+def check_settings(args) -> None:
+    """Validation + sentinel rewrites (ref: cli.rs:324-420)."""
+    from hiphase_tpu_torch.io.bgzf import is_bgzf
+
+    for path in args.bams + args.vcfs + [args.reference]:
+        if not os.path.exists(path):
+            raise SystemExit(f"File does not exist: {path}")
+    for vcf in args.vcfs:
+        if not is_bgzf(vcf):
+            raise SystemExit(f"VCF file is not bgzip-compressed: {vcf}")
+        if not (os.path.exists(vcf + ".tbi") or os.path.exists(vcf + ".csi")):
+            raise SystemExit(f"VCF index not found for: {vcf}")
+    for bam in args.bams:
+        if bam.endswith(".cram"):
+            if not os.path.exists(bam + ".crai"):
+                raise SystemExit(f"CRAM index not found for: {bam}")
+        elif not (os.path.exists(bam + ".bai")
+                  or os.path.exists(bam + ".csi")):
+            raise SystemExit(f"BAM index not found for: {bam}")
+
+    if len(args.vcfs) != len(args.output_vcfs):
+        raise SystemExit("--vcf and --output-vcf must be specified the same "
+                         "number of times")
+    if args.output_bams and len(args.bams) != len(args.output_bams):
+        raise SystemExit("--bam and --output-bam must be specified the same "
+                         "number of times")
+
+    # sentinel rewrites (ref: cli.rs:349-354)
+    if args.take == 0:
+        args.take = U64_MAX
+    if args.wfa_prune_distance == 0:
+        args.wfa_prune_distance = U64_MAX
+    args.min_spanning_reads = max(args.min_spanning_reads, 1)
+    args.min_matched_alleles = max(args.min_matched_alleles, 1)
+    if args.io_threads is None:
+        args.io_threads = min(args.threads, 4)
+
+
+def global_realignment_config(args):
+    """(ref: cli.rs:302-313)"""
+    if args.disable_global_realignment:
+        return None
+    from hiphase_tpu_torch.phasing.read_parsing import GlobalRealignmentConfig
+    return GlobalRealignmentConfig(
+        max_edit_distance=args.max_edit_distance,
+        wfa_prune_distance=args.wfa_prune_distance,
+        global_failure_ratio=args.global_failure_ratio,
+        global_failure_minimum=args.global_failure_minimum,
+        wfa_engine=args.wfa_engine)
 
 
 def main(argv=None, device: torch.device | None = None) -> int:
@@ -76,18 +220,18 @@ def main(argv=None, device: torch.device | None = None) -> int:
     check_settings(args)
     LAST_RUN_STATS.clear()
 
-    from hiphase_tpu.core.reference_genome import ReferenceGenome
-    from hiphase_tpu.io.bam import set_cram_reference
-    from hiphase_tpu.io.vcf import get_vcf_samples
-    from hiphase_tpu.phasing.block_gen import (
+    from hiphase_tpu_torch.core.reference_genome import ReferenceGenome
+    from hiphase_tpu_torch.io.bam import set_cram_reference
+    from hiphase_tpu_torch.io.vcf import get_vcf_samples
+    from hiphase_tpu_torch.phasing.block_gen import (
         MultiPhaseBlockIterator, PhaseBlockIterator, get_sample_bams)
-    from hiphase_tpu.phasing.phaser import create_unphased_result, solve_block
-    from hiphase_tpu_torch.phasing.phaser import prepare_block
-    from hiphase_tpu.writers.bam_writer import OrderedBamWriter
-    from hiphase_tpu.writers.block_stats import BlockStatsCollector
-    from hiphase_tpu.writers.haplotag_writer import HaplotagWriter
-    from hiphase_tpu.writers.phase_stats import StatsWriter
-    from hiphase_tpu.writers.vcf_writer import OrderedVcfWriter
+    from hiphase_tpu_torch.phasing.phaser import (
+        create_unphased_result, prepare_block, solve_block)
+    from hiphase_tpu_torch.writers.bam_writer import OrderedBamWriter
+    from hiphase_tpu_torch.writers.block_stats import BlockStatsCollector
+    from hiphase_tpu_torch.writers.haplotag_writer import HaplotagWriter
+    from hiphase_tpu_torch.writers.phase_stats import StatsWriter
+    from hiphase_tpu_torch.writers.vcf_writer import OrderedVcfWriter
 
     command_line = " ".join(sys.argv if argv is None
                             else ["hiphase-tpu-torch"] + list(argv))
@@ -404,8 +548,8 @@ class HostAStarSolver:
         self.queue_increment = queue_increment
 
     def submit(self, data):
-        from hiphase_tpu.phasing.astar import astar_solver
-        from hiphase_tpu.phasing.phaser import finalize_block
+        from hiphase_tpu_torch.phasing.astar import astar_solver
+        from hiphase_tpu_torch.phasing.phaser import finalize_block
         result = astar_solver(data.phase_block.block_index, data.variants,
                               data.read_segments, self.min_queue_size,
                               self.queue_increment)
@@ -423,8 +567,8 @@ def _astar_pool(args, reference_genome, sample_to_bams, global_config,
     import multiprocessing
     from collections import deque
 
-    from hiphase_tpu.parallel import workers
-    from hiphase_tpu.phasing.phaser import create_unphased_result
+    from hiphase_tpu_torch.parallel import workers
+    from hiphase_tpu_torch.phasing.phaser import create_unphased_result
 
     workers.init_parent(
         reference_genome, args.vcfs, sample_to_bams,

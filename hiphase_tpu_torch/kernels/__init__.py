@@ -84,8 +84,7 @@ BACKTRACE = Kernel(
 WFA_FORWARD_BACKWARD = Kernel(
     "wfa_forward_backward",
     "hiphase_tpu/align/wfa_device.py:111 (wfa_forward_backward)",
-    [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
-     P, P, P, P, P, P, P, I, P])
+    [P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P, P, I, P])
 
 KERNELS = {k.name: k for k in (BEAM_SELECT, PERMUTE_UPDATE, BACKTRACE,
                                WFA_FORWARD_BACKWARD)}

@@ -13,7 +13,7 @@ import logging
 
 import torch
 
-from hiphase_tpu.io import native
+from hiphase_tpu_torch.io import native
 
 logger = logging.getLogger(__name__)
 

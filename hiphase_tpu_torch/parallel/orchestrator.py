@@ -23,10 +23,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from hiphase_tpu.core.variants import AlleleType, VariantType
-from hiphase_tpu.phasing.astar import astar_solver
-from hiphase_tpu.phasing.phaser import BlockData, finalize_block
-from hiphase_tpu.writers.phase_stats import PhaseStats
+from hiphase_tpu_torch.core.variants import AlleleType, VariantType
+from hiphase_tpu_torch.phasing.astar import astar_solver
+from hiphase_tpu_torch.phasing.phaser import BlockData, finalize_block
+from hiphase_tpu_torch.writers.phase_stats import PhaseStats
 from hiphase_tpu_torch.phasing.beam import (
     PACK_PAD, assign_slots, beam_init_device, fetch_haplotypes, max_hets_for,
     pack_inputs, pack_job_stats, tensorize_block, tiles_backtrace_packed,
@@ -70,7 +70,7 @@ def _stats_from_beam(data: BlockData, h1, h2, cost: int, pruned: int,
     if estimate:
         # --stats-file semantics: estimated_cost is the root value of the
         # reference's right-to-left heuristic sweep
-        from hiphase_tpu.phasing.astar import (
+        from hiphase_tpu_torch.phasing.astar import (
             MAX_SEGMENT_SIZE, _BlockReads, calculate_astar_heuristic,
         )
         reads = _BlockReads(data.read_segments, len(data.variants))

@@ -3,7 +3,7 @@
 checks of the device engine.
 
 The C++ solver (``hn_beam_solve_batch`` in ``native/hiphase_native.cc``,
-reached through the JAX-free ``hiphase_tpu.io.native``) ranks candidates
+reached through this package's ``io/native.py``) ranks candidates
 with the same packed key as the device kernels and escalates any block that
 is not provably optimal at the fast width to the full width, so its result
 is bit-identical to the device engine's.
@@ -15,9 +15,9 @@ import time
 
 import numpy as np
 
-from hiphase_tpu.io import native
-from hiphase_tpu.phasing.astar import astar_solver
-from hiphase_tpu.phasing.phaser import BlockData, finalize_block
+from hiphase_tpu_torch.io import native
+from hiphase_tpu_torch.phasing.astar import astar_solver
+from hiphase_tpu_torch.phasing.phaser import BlockData, finalize_block
 from hiphase_tpu_torch.parallel.orchestrator import _pad_width, _stats_from_beam
 from hiphase_tpu_torch.phasing.beam import max_hets_for
 

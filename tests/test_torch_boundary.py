@@ -1,24 +1,40 @@
-"""The torch port never imports JAX.
+"""The torch port imports neither JAX nor anything of the JAX package.
 
-Checked in a subprocess, because tests/conftest.py imports JAX into the
-test process: import every module of hiphase_tpu_torch and chip_smoke.py,
-run a tiny solve and tiny CLI runs on the CPU (local mode, and dual mode
-with --wfa-engine device), then assert that no JAX module was loaded.
+The port keeps its own copy of the host layer, so no module of
+``hiphase_tpu`` (the JAX package; ``hiphase_tpu_torch`` is the port) may
+load while it runs. Checked two ways:
+
+- in a subprocess, because tests/conftest.py imports JAX into the test
+  process: import every module of hiphase_tpu_torch and chip_smoke.py, run
+  a tiny solve and tiny CLI runs on the CPU (the cuda and native engines
+  in dual mode on the host WFA, astar in local mode, and dual mode with
+  --wfa-engine device), then assert that no JAX module
+  and no module of the JAX package was loaded. The dataset is built in
+  this process beforehand, so the subprocess sees only the port;
+- statically: no import statement of any port source or of chip_smoke.py,
+  at module level or inside a function, names the JAX package.
 """
 
+import ast
 import os
 import pathlib
 import subprocess
 import sys
 
+import pytest
+
+from tests.sim import build_dataset
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
-import importlib, pkgutil, sys, tempfile, pathlib
+import importlib, pkgutil, sys, pathlib
 import numpy as np
 import torch
 torch.set_num_threads(1)
 sys.path.insert(0, sys.argv[1])
+fasta, vcf, bam, out = sys.argv[2:6]
+out = pathlib.Path(out)
 
 import hiphase_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(hiphase_tpu_torch.__path__,
@@ -27,7 +43,8 @@ names = [m.name for m in pkgutil.walk_packages(hiphase_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-chip_smoke.load_golden_test()
+from hiphase_tpu_torch.utils import golden
+golden.committed_sha256()
 
 from hiphase_tpu_torch.phasing.beam import solve_blocks
 rng = np.random.default_rng(0)
@@ -37,36 +54,86 @@ res = solve_blocks(alleles, quals, np.zeros((2, 6), bool), beam_width=64,
                    device=torch.device("cpu"))
 assert res.h1.shape == (2, 6)
 
-from tests.sim import build_dataset
 from hiphase_tpu_torch import cli
-with tempfile.TemporaryDirectory() as d:
-    d = pathlib.Path(d)
-    fasta, vcf, bam, _c, _ = build_dataset(d, seed=3, n_contigs=1,
-                                           contig_len=3000)
-    for engine in ("cuda", "native"):
-        assert cli.main(["--bam", bam, "--vcf", vcf, "--reference", fasta,
-                         "--output-vcf", str(d / f"{engine}.vcf.gz"),
-                         "--engine", engine, "--beam-width", "64"],
-                        device=torch.device("cpu")) == 0
-    # dual mode on the device WFA's plain version
+from hiphase_tpu_torch.phasing import global_realign
+# count the blocks each WFA engine loads in dual mode
+loads = []
+load = global_realign.load_full_read_segments
+def counted(*args, **kwargs):
+    loads.append(args[7].wfa_engine)
+    return load(*args, **kwargs)
+global_realign.load_full_read_segments = counted
+
+# dual mode on the host WFA (the default), and local mode
+for engine, mode in (("cuda", []), ("native", []),
+                     ("astar", ["--disable-global-realignment"])):
+    loads.clear()
     assert cli.main(["--bam", bam, "--vcf", vcf, "--reference", fasta,
-                     "--output-vcf", str(d / "dual.vcf.gz"),
-                     "--engine", "cuda", "--wfa-engine", "device"],
+                     "--output-vcf", str(out / f"{engine}.vcf.gz"),
+                     "--engine", engine, "--beam-width", "64", *mode],
                     device=torch.device("cpu")) == 0
-    assert cli.LAST_RUN_STATS["wfa"]["reads"] > 0
+    assert loads == ([] if mode else ["host"] * len(loads)), (engine, loads)
+    assert mode or loads, engine
+# dual mode on the device WFA's plain version
+assert cli.main(["--bam", bam, "--vcf", vcf, "--reference", fasta,
+                 "--output-vcf", str(out / "dual.vcf.gz"),
+                 "--engine", "cuda", "--wfa-engine", "device"],
+                device=torch.device("cpu")) == 0
+assert cli.LAST_RUN_STATS["wfa"]["reads"] > 0
 
 jax_modules = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib")))
-print("modules", len(names), "jax", jax_modules)
+reference = sorted(m for m in sys.modules
+                   if m == "hiphase_tpu" or m.startswith("hiphase_tpu."))
+print("modules", len(names), "jax", jax_modules, "hiphase_tpu", reference)
 assert not jax_modules, jax_modules
+assert not reference, reference
 """
 
 
-def test_port_and_chip_smoke_never_import_jax():
+def test_port_and_chip_smoke_never_import_jax(tmp_path):
+    fasta, vcf, bam, _c, _ = build_dataset(tmp_path, seed=3, n_contigs=1,
+                                           contig_len=3000)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(REPO)],
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(REPO), fasta,
+                           vcf, bam, str(tmp_path)],
                           capture_output=True, text=True, env=env,
                           cwd=str(REPO), timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "jax []" in proc.stdout
+    assert "jax [] hiphase_tpu []" in proc.stdout
+
+
+SOURCES = sorted(str(p.relative_to(REPO)) for p in
+                 [*REPO.glob("hiphase_tpu_torch/**/*.py"),
+                  REPO / "chip_smoke.py"])
+
+
+def _reference_imports(source: str) -> list[str]:
+    """Names of the JAX package's modules that import statements anywhere
+    in ``source`` (functions included) import."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [n for n in names
+                  if n == "hiphase_tpu" or n.startswith("hiphase_tpu.")]
+    return found
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_no_import_of_the_jax_package(path):
+    assert _reference_imports((REPO / path).read_text()) == []
+
+
+def test_the_static_check_sees_lazy_imports():
+    source = ("import os\n"
+              "def f():\n"
+              "    from hiphase_tpu.io import native\n"
+              "    import hiphase_tpu.cli as c\n"
+              "    from hiphase_tpu_torch.io import bam\n")
+    assert _reference_imports(source) == ["hiphase_tpu.io", "hiphase_tpu.cli"]

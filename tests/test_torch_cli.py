@@ -139,7 +139,7 @@ def test_device_error_ends_the_run(tmp_path, monkeypatch):
 
 
 def test_auto_without_cuda_resolves_to_a_host_engine(tmp_path, monkeypatch):
-    from hiphase_tpu.io import native
+    from hiphase_tpu_torch.io import native
     fasta, vcf, bam, _contigs, _ = build_dataset(
         tmp_path, seed=26, n_contigs=1, contig_len=3000)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

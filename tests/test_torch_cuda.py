@@ -75,3 +75,62 @@ def test_wfa_kernel_on_card_matches_cpu(cuda, H):
     want = wd.wfa_forward_backward(*host, H=H, **kw)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+def _seeded_pairs():
+    import chip_smoke
+    pairs = []
+    for seed in (0, 1, 2, 3):
+        graph, reads = chip_smoke.wfa_graph_case(seed, branches=2 + seed % 2)
+        pairs += [(graph, r) for r in reads]
+    return pairs
+
+
+@pytest.mark.parametrize("H", [32, 128, 512])
+def test_wfa_kernel_ragged_batch_on_card_matches_cpu(cuda, H):
+    """chip_smoke.py's seeded graphs of two- and three-parent joins, each
+    with its four reads, in one launch against the plain version on the
+    CPU."""
+    import chip_smoke
+    pairs = _seeded_pairs()
+    want = chip_smoke.WfaBatch(pairs, CPU).plain(H)
+    batch = chip_smoke.WfaBatch(pairs, cuda)
+    before = kernels.launch_counts()["wfa_forward_backward"]
+    got = batch.kernel(H)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["wfa_forward_backward"] - before == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b), H
+
+
+@pytest.mark.parametrize("H", [32, 128, 512])
+def test_wfa_ladder_in_memory_sized_groups_matches_one_launch(
+        cuda, H, monkeypatch):
+    """A rung whose scratch does not fit the free-memory budget is split
+    into launch groups, each with its own scratch offsets (PairBatch.meta)
+    and the batch's output indices: with a budget of two pairs' scratch the
+    ragged batch takes one launch a group and gives the results of one
+    launch, and of the plain version on the CPU."""
+    from hiphase_tpu_torch.align import wfa_device as wd
+    pairs = _seeded_pairs()
+    want = wd.align_pairs_device(pairs, CPU, h_ladder=(H,))
+    one = wd.WfaCounters()
+    assert wd.align_pairs_device(pairs, cuda, h_ladder=(H,),
+                                 counters=one) == want
+    assert one.band_calls == 1
+    need = wd.PairBatch([wd._linearized(g) for g, _r in pairs],
+                        [r for _g, r in pairs],
+                        list(range(len(pairs)))).need_bytes(H)
+    budget = 2 * int(need.max())
+    groups = wd._launch_groups(need, budget)
+    assert len(groups) >= 3
+    # the ladder budgets half the free memory
+    monkeypatch.setattr(wd, "_free_bytes", lambda dev: 2 * budget)
+    split = wd.WfaCounters()
+    before = kernels.launch_counts()["wfa_forward_backward"]
+    got = wd.align_pairs_device(pairs, cuda, h_ladder=(H,), counters=split)
+    launches = kernels.launch_counts()["wfa_forward_backward"] - before
+    assert got == want and any(r is not None for r in got)
+    assert launches == split.band_calls == len(groups)
+    assert split.pair_launches == len(pairs)
+    assert split.max_pairs_per_launch == max(hi - lo for lo, hi in groups)

@@ -1,6 +1,8 @@
 """The torch port's orchestrator helpers against the JAX package's, and the
 batched device solver's accounting, on the CPU."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -65,7 +67,9 @@ def test_stats_from_beam_matches(estimate):
     h2 = [1, 0, 2, 1, 1, 0, 1, 0, 0, 1, 0, 2]
     got = torch_orch._stats_from_beam(data, h1, h2, 77, 3, estimate=estimate)
     want = jorch._stats_from_beam(data, h1, h2, 77, 3, estimate=estimate)
-    assert got == want
+    # each package has its own PhaseStats class: compare the fields
+    assert type(got).__name__ == type(want).__name__ == "PhaseStats"
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_batched_solver_matches_native_and_counts_transfers():

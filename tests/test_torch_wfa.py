@@ -162,9 +162,175 @@ def test_align_reads_device_equals_jax_across_the_ladder():
     assert got == jax_wfa.align_reads_device(g, reads)
     assert got[1] is not None and got[1][0] > 32
     assert got[3] is None
+    # one launch per rung: 4, then 2, then 1 pairs
     assert counters.as_dict() == {
         "reads": 4, "certified": {"32": 2, "128": 1}, "uncertified": 1,
-        "band_calls": 3, "h2d_copies": 0}
+        "band_calls": 3, "pairs_per_launch": 7 / 3,
+        "max_pairs_per_launch": 4, "h2d_copies": 0}
+
+
+def _ragged_pairs():
+    """Seeded graphs of different lengths and parent counts (two- and
+    three-parent joins, eps branches, the randomized SNV/indel graphs),
+    each read against its own graph, with reads of mixed lengths: the
+    reference path, a mutated one, a trimmed one, an empty one and one
+    that is out of band."""
+    rng = np.random.default_rng(13)
+    pairs = []
+    for seed in (0, 1):
+        g, reads = chip_smoke.wfa_graph_case(seed, branches=2 + seed)
+        pairs += [(g, reads[0]), (g, reads[1][5:-9]), (g, reads[3]),
+                  (g, b"")]
+    for _ in range(3):
+        g, obs = _random_case(rng)
+        pairs += [(g, obs), (g, obs[2:-3])]
+    return pairs
+
+
+@pytest.mark.parametrize("H", port.H_LADDER)
+def test_batched_plain_equals_jax_pair_by_pair(H):
+    """One ragged batch through the batched plain version equals the JAX
+    wfa_forward_backward of each pair alone."""
+    pairs = _ragged_pairs()
+    batch = port.PairBatch([port._linearized(g) for g, _r in pairs],
+                           [r for _g, r in pairs], list(range(len(pairs))))
+    assert len(set(batch.G.tolist())) >= 3 and batch.P == 4
+    meta = batch.meta(np.arange(batch.n), [(0, batch.n)])
+    score, in_band, trav = port.wfa_forward_backward_batched(
+        *batch.upload(CPU), torch.from_numpy(meta), H, n_out=batch.n,
+        trav_len=int(batch.N.sum()), scratch_pos=int(batch.G.sum()),
+        scratch_nodes=int(batch.N.sum()), max_read_len=int(batch.rlen.max()))
+    for i, (g, r) in enumerate(pairs):
+        w_score, w_trav, w_in_band = (
+            np.asarray(x) for x in _both(g, [r], H)[0])
+        off = meta[i, 11]
+        assert score[i].item() == w_score[0], i
+        assert in_band[i].item() == w_in_band[0], i
+        assert np.array_equal(trav[off:off + batch.N[i]].numpy(), w_trav[0])
+    assert not in_band[2].item() and not in_band[6].item()
+
+
+def test_batched_ladder_equals_the_per_read_ladder():
+    """align_pairs_device over the ragged batch gives exactly the results
+    and the certified-at-H counts of align_reads_device read by read, in
+    one launch a rung."""
+    pairs = _ragged_pairs()
+    batched = port.WfaCounters()
+    got = port.align_pairs_device(pairs, CPU, counters=batched)
+    single = port.WfaCounters()
+    want = [port.align_reads_device(g, [r], CPU, counters=single)[0]
+            for g, r in pairs]
+    assert got == want
+    assert got == [jax_wfa.align_reads_device(g, [r])[0] for g, r in pairs]
+    a, b = batched.as_dict(), single.as_dict()
+    for key in ("reads", "certified", "uncertified"):
+        assert a[key] == b[key], key
+    assert a["uncertified"] >= 2       # the out-of-band reads
+    assert a["band_calls"] == 3 and a["max_pairs_per_launch"] == len(pairs)
+    assert b["band_calls"] > len(pairs)
+
+
+def test_launch_groups_fit_the_budget():
+    """Consecutive groups whose scratch fits the budget, each holding at
+    least one pair; no budget is one group."""
+    need = np.array([5, 3, 9, 2, 2, 2, 7, 1])
+    assert port._launch_groups(need, None) == [(0, 8)]
+    groups = port._launch_groups(need, 8)
+    assert groups == [(0, 2), (2, 3), (3, 6), (6, 8)]
+    assert port._launch_groups(need, 1) == [(i, i + 1) for i in range(8)]
+
+
+def test_batched_ladder_in_launch_groups_equals_one_launch(monkeypatch):
+    """A ladder whose rungs are split into launch groups of three pairs
+    gives the one-launch results: every group writes its pairs' outputs at
+    the batch's indices, one band call a group."""
+    pairs = _ragged_pairs()
+    want = port.align_pairs_device(pairs, CPU)
+    seen = []
+
+    def threes(need, budget):
+        groups = [(lo, min(lo + 3, len(need)))
+                  for lo in range(0, len(need), 3)]
+        seen.append(groups)
+        return groups
+
+    monkeypatch.setattr(port, "_launch_groups", threes)
+    counters = port.WfaCounters()
+    assert port.align_pairs_device(pairs, CPU, counters=counters) == want
+    assert len(seen[0]) >= 3
+    assert counters.band_calls == sum(len(g) for g in seen)
+    assert counters.max_pairs_per_launch == 3
+
+
+def _noisy_dataset(tmp_path, seed, contig_len, coverage):
+    """tests/sim.py's SNV dataset with every other read carrying 6 to 12
+    substitutions, so that some reads score above a low
+    --global-realignment-max-ed."""
+    from tests import sim as tsim
+    rng = np.random.default_rng(seed)
+    contig = tsim.simulate_contig(rng, "chr1", contig_len)
+    fasta, vcf, bam = (str(tmp_path / x)
+                       for x in ("ref.fa", "calls.vcf.gz", "reads.bam"))
+    tsim.write_fasta(fasta, [contig])
+    tsim.write_vcf(vcf, [contig])
+    reads = []
+    for i, (pos, rec, hap) in enumerate(tsim.simulate_reads(
+            rng, contig, 0, coverage=coverage, rg_tag=tsim.RG_TAG)):
+        seq = bytearray(rec.query_sequence())
+        if i % 2:
+            for j in rng.choice(len(seq), size=int(rng.integers(6, 13)),
+                                replace=False):
+                seq[j] = b"ACGT"[(b"ACGT".index(seq[j]) + 1) % 4]
+        reads.append((pos, tsim.make_bam_record(
+            rec.read_name, 0, pos, bytes(seq), [("M", len(seq))],
+            tags=tsim.RG_TAG), hap))
+    tsim.write_bam(bam, [contig], [reads])
+    return fasta, vcf, bam
+
+
+def test_dual_mode_trip_mid_block_matches_jax_host_wfa(tmp_path, caplog):
+    """A low --global-realignment-max-ed with a low --global-failure-count
+    and ratio trips the failure ladder inside a block: the reads after the
+    trip go to local realignment, and the device-WFA output is
+    byte-identical to the JAX package's host WFA."""
+    import gzip
+    import logging
+
+    from hiphase_tpu.cli import main as jax_cli_main
+    from hiphase_tpu_torch import cli
+
+    fasta, vcf, bam = _noisy_dataset(tmp_path, seed=31, contig_len=5000,
+                                     coverage=12)
+    flags = ["--global-realignment-max-ed", "4", "--global-failure-count",
+             "3", "--max-global-failure-ratio", "0.3", "--threads", "1"]
+    outs = {}
+    for name in ("port", "jax"):
+        o = (str(tmp_path / f"{name}.vcf.gz"), str(tmp_path / f"{name}.tsv"))
+        argv = ["--bam", bam, "--vcf", vcf, "--reference", fasta,
+                "--output-vcf", o[0], "--blocks-file", o[1]] + flags
+        if name == "port":
+            with caplog.at_level(logging.INFO):
+                assert cli.main(argv + ["--engine", "cuda", "--wfa-engine",
+                                        "device"], device=CPU) == 0
+            wfa = cli.LAST_RUN_STATS["wfa"]
+        else:
+            assert jax_cli_main(argv + ["--engine", "native",
+                                        "--wfa-engine", "host"]) == 0
+        outs[name] = o
+    trips = [r for r in caplog.records
+             if "reverting to local for the rest" in r.getMessage()]
+    assert trips, "the failure ladder did not trip"
+    # the trip comes after a few reads of a block, not at its end
+    assert wfa["reads"] > 10 * len(trips)
+
+    def body(path):
+        return [x for x in gzip.open(path).read().split(b"\n")
+                if not x.startswith(b"##hiphase")]
+
+    assert len(body(outs["port"][0])) > 20
+    assert body(outs["port"][0]) == body(outs["jax"][0])
+    with open(outs["port"][1], "rb") as a, open(outs["jax"][1], "rb") as b:
+        assert a.read() == b.read()
 
 
 def _port_result(graph, seq):
