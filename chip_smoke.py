@@ -9,9 +9,14 @@ line:
   2. build every kernel from hiphase_tpu_torch/csrc with nvcc (sm_90a);
   3. hold each beam kernel against its plain PyTorch version on the card,
      with exact integer equality, on seeded inputs: one full tile at
-     (B, R, W) = (64, 128, 1024), W = 64 and W = 2560, and the (16, 512)
-     and (8, 1024) slot buckets; median device times of both (CUDA
-     events);
+     (B, R, W) = (64, 128, 1024), W = 64 and W = 2560, the (16, 512)
+     and (8, 1024) slot buckets, and the wide beams (16, 512, 5056)
+     (--phase-min-queue-size 5000, padded), (8, 1024, 8192) and
+     (4, 128, 32768), the int16 trace's cap; median device times of both
+     (CUDA events), beside `torch.topk` of the W + 1 smallest of the 4W
+     candidate keys (`selection_library_ms`, a yardstick for the selection
+     alone). At the first shape, the host's time to enqueue one tile
+     through the checked public wrappers and through the chain;
   3b. hold the graph-WFA kernel against its plain version, exactly, at
      H = 32, 128 and 512, on one ragged batch in one launch: seeded graphs of different lengths
      and parent counts (SNV, insertion and deletion (eps) nodes, two- and
@@ -29,6 +34,9 @@ line:
      does not load), two host→device copies per batch, every beam kernel
      launched. Without the native host library the genome is cut to
      BENCH_MB_PURE_PYTHON, and the cut is printed;
+  5b. the golden dataset in local mode at --phase-min-queue-size 5000
+     (beam width 5056) with --engine cuda, record-identical to the same
+     reference engine, every beam kernel launched;
   6. the golden dataset again with --engine cuda --wfa-engine device: the
      same committed sha256, every kernel launched, reads certified on the
      device at H = 512;
@@ -62,9 +70,13 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 # (B, R, W) of step 3; the first is the main path's production shape
 KERNEL_SHAPES = ((64, 128, 1024), (64, 128, 64), (64, 128, 2560),
-                 (16, 512, 1024), (8, 1024, 1024))
+                 (16, 512, 1024), (8, 1024, 1024), (16, 512, 5056),
+                 (8, 1024, 8192), (4, 128, 32768))
 TILE = 128
 TIMING_REPS = 20
+# step 5b's queue size: a beam width of 5056, past the 4096 that one CTA's
+# shared memory held before beam_select ran as a cluster
+WIDE_QUEUE = 5000
 # step 5's genome size: bench.py's 30 Mb, cut when the native host library
 # does not load (block generation, allele assignment and the reference
 # engine then run in pure Python, about 30 s per Mb on an 8-core host)
@@ -203,6 +215,43 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def selection_keys(state, packed, skip, col):
+    """The [B, 4W] int64 candidate keys that beam_select_plain sorts at
+    column ``col`` of ``state`` (left unchanged)."""
+    from unittest import mock
+
+    import torch
+
+    from hiphase_tpu_torch.phasing import beam
+    st = tuple(t.clone() for t in state)
+    B, W, R = st[0].shape
+    V = skip.shape[1]
+    dev = st[0].device
+    traces = (torch.empty((V, B, W), dtype=torch.int16, device=dev),
+              torch.empty((V, B, W), dtype=torch.int8, device=dev),
+              torch.empty((V, B), dtype=torch.int32, device=dev),
+              torch.empty((V, B), dtype=torch.int32, device=dev))
+    scratch = (torch.empty((B, W), dtype=torch.int32, device=dev),
+               torch.empty((B, R), dtype=torch.int32, device=dev),
+               torch.empty((B, R), dtype=torch.int32, device=dev))
+    with mock.patch.object(torch, "sort", wraps=torch.sort) as sort:
+        beam.beam_select_plain(*st, packed, skip, col, traces, scratch)
+    return sort.call_args.args[0]
+
+
+def enqueue_us(fn) -> float:
+    """Host µs to enqueue ``fn``'s launches, queued behind a GPU sleep so
+    that no launch waits for the device."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)   # about 0.1 s at 2 GHz
+    t0 = time.perf_counter()
+    fn()
+    us = (time.perf_counter() - t0) * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def check_kernels(device) -> dict:
     """Every kernel against its plain version at every shape; returns, per
     kernel, the largest error and the times at the production shape."""
@@ -311,11 +360,62 @@ def check_kernels(device) -> dict:
                                      **bounds[name], library_ms=None)
         if kernels.launch_counts() == counts:
             raise AssertionError("timing launched no kernel")
+        keys = selection_keys(pre, packed, skip, col)
+        line["selection_library_ms"] = median_ms(
+            lambda: torch.topk(keys, W + 1, dim=-1, largest=False,
+                               sorted=True))
+        plan = kernels.beam_select_plan(B, W, R)
+        line["beam_select_cluster"] = plan.cluster
+        line["beam_select_threads"] = plan.threads
+        if i == 0:
+            line["tile_enqueue_us"] = tile_enqueue_us(fresh, packed, skip, W)
         log("kernel check " + json.dumps(line))
         if any(errs.values()) or chain_err:
             raise AssertionError(f"kernel disagrees with its plain version "
                                  f"at (B, R, W) = ({B}, {R}, {W}): {errs}")
     return results
+
+
+def tile_enqueue_us(fresh, packed, skip, W) -> dict:
+    """Host µs to enqueue one tile: through the public wrappers, which
+    check their arguments every column (as the chain did before it checked
+    once), and through tiles_forward_packed; in turns, the median of each."""
+    import torch
+
+    from hiphase_tpu_torch.phasing import beam
+    B, _, R = fresh[0].shape
+    T = skip.shape[1]
+    dev = fresh[0].device
+
+    def checked():
+        delta, cost, hets, valid = (t.clone() for t in fresh)
+        spare = torch.empty_like(delta)
+        traces = (torch.empty((T, B, W), dtype=torch.int16, device=dev),
+                  torch.empty((T, B, W), dtype=torch.int8, device=dev),
+                  torch.empty((T, B), dtype=torch.int32, device=dev),
+                  torch.empty((T, B), dtype=torch.int32, device=dev))
+        scratch = (torch.empty((B, W), dtype=torch.int32, device=dev),
+                   torch.empty((B, R), dtype=torch.int32, device=dev),
+                   torch.empty((B, R), dtype=torch.int32, device=dev))
+
+        def run():
+            for col in range(T):
+                beam.beam_select(delta, cost, hets, valid, packed, skip, col,
+                                 traces, scratch)
+                beam.permute_update(delta, traces[0][col], *scratch,
+                                    out=spare)
+        return run
+
+    def chain():
+        state = tuple(t.clone() for t in fresh)
+        return lambda: beam.tiles_forward_packed(state, packed, skip, W, T)
+
+    times = {"checked": [], "chain": []}
+    for name in ("checked", "chain", "chain", "checked") * 2:
+        fn = checked() if name == "checked" else chain()
+        times[name].append(enqueue_us(fn))
+    return {"columns": T,
+            **{k: sorted(v)[len(v) // 2] for k, v in times.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -672,6 +772,48 @@ def check_local_bench(workdir: str, host_engine: str, total_mb: int) -> dict:
     return launches
 
 
+def check_wide_golden(workdir: str, meta: dict, host_engine: str) -> dict:
+    """Step 5b: the golden dataset in local mode at --phase-min-queue-size
+    WIDE_QUEUE with --engine cuda, record-identical to ``host_engine`` at
+    the same flags; every beam kernel launched."""
+    from hiphase_tpu_torch import kernels
+
+    def argv(engine, threads):
+        return ["--bam", meta["bam"], "--vcf", meta["vcf"],
+                "--reference", meta["fasta"], "--output-vcf",
+                os.path.join(workdir, f"wide.{engine}.vcf.gz"),
+                "--blocks-file", os.path.join(workdir, f"wide.{engine}.tsv"),
+                "--engine", engine, "--threads", str(threads),
+                "--disable-global-realignment",
+                "--phase-min-queue-size", str(WIDE_QUEUE)]
+
+    kernels.reset_launch_counts()
+    cuda_s, stats = run_cli(argv("cuda", 2))
+    launches = kernels.launch_counts()
+    host_s, _ = run_cli(argv(host_engine, min(os.cpu_count() or 2, 8)))
+    same_vcf = (vcf_records(os.path.join(workdir, "wide.cuda.vcf.gz"))
+                == vcf_records(os.path.join(workdir,
+                                            f"wide.{host_engine}.vcf.gz")))
+    with open(os.path.join(workdir, "wide.cuda.tsv")) as a, \
+            open(os.path.join(workdir, f"wide.{host_engine}.tsv")) as b:
+        same_blocks = a.read() == b.read()
+    log("wide golden " + json.dumps({
+        "phase_min_queue_size": WIDE_QUEUE, "cuda_seconds": cuda_s,
+        f"{host_engine}_seconds": host_s,
+        "device_batches": stats.get("device_batches"),
+        "kernel_launches": launches,
+        "record_identical": same_vcf and same_blocks}))
+    if not same_vcf or not same_blocks:
+        raise AssertionError(f"--engine cuda output differs from --engine "
+                             f"{host_engine} at --phase-min-queue-size "
+                             f"{WIDE_QUEUE}")
+    missing = [k for k in BEAM_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the wide-beam "
+                             f"path: {missing}")
+    return launches
+
+
 def check_dual_bench(workdir: str, total_mb: int) -> dict:
     """bench_e2e.py --global's configuration with --wfa-engine device,
     record-identical to --wfa-engine host; every kernel launched, and a few
@@ -816,6 +958,8 @@ def main() -> int:
                 f"because the native host library did not load and the "
                 f"host path runs in pure Python")
         launches = check_local_bench(workdir, host_engine, total_mb)
+        # 5b. the widths that one CTA's shared memory did not hold
+        check_wide_golden(workdir, golden_meta, host_engine)
         # 6. golden dataset, dual mode on the device WFA; four prepare
         # threads keep several WFA launches in flight (the output does
         # not depend on the thread count)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from ctypes import c_int, c_void_p
+from dataclasses import dataclass
 
 from hiphase_tpu_torch.kernels import build
 
@@ -74,7 +75,8 @@ P, I = c_void_p, c_int
 
 BEAM_SELECT = Kernel(
     "beam_select", "hiphase_tpu/phasing/beam.py:105 (_step)",
-    [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P, I, P])
+    [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P,
+     P, I, P])
 PERMUTE_UPDATE = Kernel(
     "permute_update", "scripts/pallas_permute.py:61 (permute_update_pallas)",
     [P, P, P, P, P, P, I, I, I, I, P])
@@ -90,14 +92,65 @@ KERNELS = {k.name: k for k in (BEAM_SELECT, PERMUTE_UPDATE, BACKTRACE,
                                WFA_FORWARD_BACKWARD)}
 
 
-def beam_select_smem_bytes(width: int, slots: int) -> int:
-    """Dynamic shared memory of one beam_select block: the 4·W candidate
-    keys (8 bytes each, padded to a power of two for the sort) and the
-    column's e0 row."""
-    n = 1
-    while n < 4 * width:
-        n <<= 1
-    return 8 * n + 4 * slots
+# beam_select: the cluster sizes a launch may take (up to the portable
+# maximum; 16 CTAs a row measured slower than 8 on the H100), the threads a
+# CTA, and the widest beam: parents are traced as int16, in the JAX package
+# too.
+BEAM_CLUSTER_SIZES = (1, 2, 4, 8)
+BEAM_SELECT_THREADS = 512
+MAX_BEAM_WIDTH = 32768
+# CTAs a beam_select launch aims for: one on each of 128 of the H100's 132
+# SMs, the most that power-of-two cluster sizes reach at the power-of-two
+# batch sizes of the slot buckets.
+BEAM_SELECT_CTAS = 128
+
+
+@dataclass(frozen=True)
+class BeamSelectPlan:
+    cluster: int   # CTAs a batch row, one thread-block cluster
+    threads: int   # threads a CTA
+    sample: int    # stride at which a CTA copies the other CTAs' sorted keys
+    smem: int      # dynamic shared bytes a CTA
+
+
+def beam_select_plan(batch: int, width: int, slots: int) -> BeamSelectPlan:
+    """The launch shape of beam_select for δ [batch, width, slots].
+
+    A CTA holds the 4·W/C candidate keys of its share of the row (8 bytes
+    each, padded to a power of two, at least 64), a copy of every
+    sample-th key of each CTA's sorted share (none when C is 1), its slice
+    of W/C survivors (rounded up to even) and the column's e0 row. The
+    cluster size C is the smallest that divides W, fits, and gives
+    batch·C ≥ BEAM_SELECT_CTAS; failing that, the largest that fits.
+    ``sample`` is the smallest power of two that fits the CTA in shared
+    memory.
+    """
+    if width > MAX_BEAM_WIDTH:
+        raise ValueError(
+            f"beam width {width} > {MAX_BEAM_WIDTH}: the parents trace is "
+            f"int16, so a survivor's parent index would overflow it")
+    fits = []
+    for c in BEAM_CLUSTER_SIZES:
+        if width % c:
+            continue
+        keys = 64
+        while keys < 4 * width // c:
+            keys <<= 1
+        sample = 1
+        while sample <= keys:
+            copies = c * (keys // sample) if c > 1 else 0
+            slice_ = (width // c + 1) // 2 * 2
+            smem = 8 * (keys + copies + slice_) + 4 * slots
+            if smem <= MAX_DYNAMIC_SMEM:
+                fits.append(BeamSelectPlan(c, BEAM_SELECT_THREADS, sample,
+                                           smem))
+                break
+            sample <<= 1
+    if not fits:
+        raise ValueError(f"beam_select cannot hold a row of width {width} "
+                         f"over {slots} slots in one cluster's shared memory")
+    return next((f for f in fits if batch * f.cluster >= BEAM_SELECT_CTAS),
+                fits[-1])
 
 
 def build_all() -> dict[str, build.BuiltKernel]:

@@ -126,17 +126,27 @@ def beam_select(delta, cost, hets, valid, packed, skip, col: int,
         beam_select_plain(delta, cost, hets, valid, packed, skip, col,
                           traces, scratch)
         return
+    C, V, Vt = packed.shape[2], skip.shape[1], traces[0].shape[0]
+    if not 0 <= col < min(V, Vt) or col + 1 >= C:
+        raise ValueError(f"column {col} outside skip [.., {V}] / packed "
+                         f"[.., {C}] (packed needs col + 1) / traces "
+                         f"[{Vt}, ..]")
+    _select_launcher(delta, cost, hets, valid, packed, skip, traces,
+                     scratch)(delta.data_ptr(), col)
+
+
+def _select_launcher(delta, cost, hets, valid, packed, skip, traces,
+                     scratch):
+    """Check beam_select's tensors on a CUDA device and plan its launch;
+    returns ``launch(delta_ptr, col)``, which launches the kernel on a δ
+    buffer of ``delta``'s shape with no further checks (the caller keeps
+    ``col`` inside the tensors)."""
     B, W, R = delta.shape
     C, V = packed.shape[2], skip.shape[1]
     dev = delta.device
-    if not 0 <= col < V or col + 1 >= C:
-        raise ValueError(f"column {col} outside skip [.., {V}] / "
-                         f"packed [.., {C}] (packed needs col + 1)")
     parents, choices, pruned, dmin = traces
     sgn, e0, rn = scratch
     Vt = parents.shape[0]
-    if col >= Vt:
-        raise ValueError(f"column {col} outside the traces [{Vt}, ..]")
     for name, t, dt, shape in (
             ("delta", delta, torch.int32, (B, W, R)),
             ("cost", cost, torch.int32, (B, W)),
@@ -152,19 +162,19 @@ def beam_select(delta, cost, hets, valid, packed, skip, col: int,
             ("e0", e0, torch.int32, (B, R)),
             ("rn", rn, torch.int32, (B, R))):
         _check(name, t, dt, shape, dev)
-    smem = kernels.beam_select_smem_bytes(W, R)
-    if smem > kernels.MAX_DYNAMIC_SMEM:
-        raise ValueError(
-            f"beam_select keeps the 4·W candidate keys of a row in shared "
-            f"memory: W={W}, R={R} needs {smem} bytes, over the "
-            f"{kernels.MAX_DYNAMIC_SMEM}-byte limit (W ≤ 4096 fits)")
-    kernels.BEAM_SELECT.launch(
-        delta.data_ptr(), cost.data_ptr(), hets.data_ptr(), valid.data_ptr(),
-        packed.data_ptr(), skip.data_ptr(), B, W, R, C, V, col,
-        order_bits_for(W), max_hets_for(W), BIG,
-        parents.data_ptr(), choices.data_ptr(), pruned.data_ptr(),
-        dmin.data_ptr(), sgn.data_ptr(), e0.data_ptr(), rn.data_ptr(),
-        dev.index, _stream(dev))
+    plan = kernels.beam_select_plan(B, W, R)
+    head = (cost.data_ptr(), hets.data_ptr(), valid.data_ptr(),
+            packed.data_ptr(), skip.data_ptr(), B, W, R, C, V)
+    tail = (order_bits_for(W), max_hets_for(W), BIG, plan.cluster,
+            plan.threads, plan.sample, plan.smem, parents.data_ptr(),
+            choices.data_ptr(), pruned.data_ptr(), dmin.data_ptr(),
+            sgn.data_ptr(), e0.data_ptr(), rn.data_ptr(), dev.index,
+            _stream(dev))
+    launch = kernels.BEAM_SELECT.launch
+
+    def select(delta_ptr: int, col: int) -> None:
+        launch(delta_ptr, *head, col, *tail)
+    return select
 
 
 def beam_select_plain(delta, cost, hets, valid, packed, skip, col: int,
@@ -249,21 +259,37 @@ def permute_update(delta, idx, sgn, e0, rn, out) -> torch.Tensor:
     if delta.device.type == "cpu":
         return permute_update_plain(delta, idx, sgn, e0, rn, out)
     B, W, R = delta.shape
+    for name, t, dt, shape in (
+            ("idx", idx, torch.int16, (B, W)),
+            ("out", out, torch.int32, (B, W, R))):
+        _check(name, t, dt, shape, delta.device)
+    if out.data_ptr() == delta.data_ptr():
+        raise ValueError("permute_update cannot write δ in place")
+    _permute_launcher(delta, sgn, e0, rn)(delta.data_ptr(), idx.data_ptr(),
+                                          out.data_ptr())
+    return out
+
+
+def _permute_launcher(delta, sgn, e0, rn):
+    """Check permute_update's tensors on a CUDA device; returns
+    ``launch(delta_ptr, idx_ptr, out_ptr)``, which launches the kernel on
+    buffers of ``delta``'s shape (idx [B, W] int16) with no further
+    checks."""
+    B, W, R = delta.shape
     dev = delta.device
     for name, t, dt, shape in (
             ("delta", delta, torch.int32, (B, W, R)),
-            ("idx", idx, torch.int16, (B, W)),
             ("sgn", sgn, torch.int32, (B, W)),
             ("e0", e0, torch.int32, (B, R)),
-            ("rn", rn, torch.int32, (B, R)),
-            ("out", out, torch.int32, (B, W, R))):
+            ("rn", rn, torch.int32, (B, R))):
         _check(name, t, dt, shape, dev)
-    if out.data_ptr() == delta.data_ptr():
-        raise ValueError("permute_update cannot write δ in place")
-    kernels.PERMUTE_UPDATE.launch(
-        delta.data_ptr(), idx.data_ptr(), sgn.data_ptr(), e0.data_ptr(),
-        rn.data_ptr(), out.data_ptr(), B, W, R, dev.index, _stream(dev))
-    return out
+    tail = (sgn.data_ptr(), e0.data_ptr(), rn.data_ptr())
+    shape = (B, W, R, dev.index, _stream(dev))
+    launch = kernels.PERMUTE_UPDATE.launch
+
+    def permute(delta_ptr: int, idx_ptr: int, out_ptr: int) -> None:
+        launch(delta_ptr, idx_ptr, *tail, out_ptr, *shape)
+    return permute
 
 
 def permute_update_plain(delta, idx, sgn, e0, rn, out) -> torch.Tensor:
@@ -350,7 +376,9 @@ def carry_state_from_jax(state, packed, skip, device: torch.device):
 def tiles_forward_packed(state, packed_d, skip_d, beam_width: int,
                          tile: int):
     """Advance the beam over every column of ``skip_d`` ([B, V]), one
-    ``tile``-column tile after another, on device-resident inputs.
+    ``tile``-column tile after another, on device-resident inputs. The
+    tiles run back to back, one column at a time, so ``tile`` does not
+    change the work.
 
     ``packed_d`` must carry V+1 columns (a trailing PACK_PAD column feeds
     the last column's lookahead reset). ``state`` is consumed: cost, hets
@@ -376,11 +404,25 @@ def tiles_forward_packed(state, packed_d, skip_d, beam_width: int,
                torch.empty((B, R), dtype=torch.int32, device=dev),
                torch.empty((B, R), dtype=torch.int32, device=dev))
     state, spare = (delta, cost, hets, valid), torch.empty_like(delta)
-    for t0 in range(0, V, tile):
-        for col in range(t0, min(t0 + tile, V)):
+    if dev.type == "cpu":
+        for col in range(V):
             state, spare = _step(state, spare, packed_d, skip_d, col, traces,
                                  scratch)
-    return state, traces
+        return state, traces
+    # on the card: the arguments are checked and the launches planned once
+    # a chain, then two unchecked launches a column
+    select = _select_launcher(delta, cost, hets, valid, packed_d, skip_d,
+                              traces, scratch)
+    permute = _permute_launcher(delta, *scratch)
+    bufs = (delta.data_ptr(), spare.data_ptr())
+    idx_ptr, idx_stride = traces[0].data_ptr(), 2 * B * W
+    for col in range(V):
+        src, dst = bufs[col & 1], bufs[1 - (col & 1)]
+        select(src, col)
+        permute(src, idx_ptr + col * idx_stride, dst)
+    if V & 1:
+        delta, spare = spare, delta
+    return (delta, cost, hets, valid), traces
 
 
 def _step(state, spare, packed, skip, col: int, traces, scratch):

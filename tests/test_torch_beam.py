@@ -38,7 +38,8 @@ def _random_packed(rng, B, R, T):
 # ---------------------------------------------------------------------------
 # re-homed numpy helpers
 
-@pytest.mark.parametrize("width", [64, 128, 1000, 1024, 2048, 2560, 4096])
+@pytest.mark.parametrize("width", [64, 128, 1000, 1024, 2048, 2560, 4096,
+                                   5056, 8192, 32768])
 def test_width_helpers_match(width):
     assert tbeam.order_bits_for(width) == jbeam.order_bits_for(width)
     assert tbeam.max_hets_for(width) == jbeam.max_hets_for(width)
@@ -83,6 +84,9 @@ TILE_CASES = [  # (B, R, T, W, seed)
     (2, 8, 6, 64, 0),
     (3, 16, 12, 64, 1),
     (2, 24, 9, 128, 2),
+    # wider than one CTA's shared memory held before; by column 8 the
+    # frontier passes W, so pruning and discard_min are exercised
+    (2, 8, 10, 5056, 4),
 ]
 
 
@@ -129,6 +133,18 @@ def test_state_carried_from_jax_continues_identically(B, R, T, W, seed):
     t_state, t_ys = tbeam.beam_tile_packed(t_state, t_pk, t_sk, W)
     for j, t in zip(tuple(j_state) + tuple(j_ys), t_state + t_ys):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+def test_wide_tile_prunes():
+    """The W = 5056 tile case discards candidates (its discard_min is a
+    real cost), so the comparison above covers the selection's cut."""
+    B, R, T, W, seed = TILE_CASES[-1]
+    packed, skip = _random_packed(np.random.default_rng(seed), B, R, T)
+    _state, (_p, _c, pruned, dmin) = tbeam.beam_tile_packed(
+        tbeam.beam_init_device(B, R, W, CPU), torch.from_numpy(packed),
+        torch.from_numpy(skip), W)
+    assert int(pruned.sum()) > 0
+    assert bool((dmin < tbeam.BIG).any())
 
 
 def test_tile_chain_equals_one_long_tile():
@@ -329,10 +345,25 @@ def test_failed_launch_raises_and_is_not_counted():
     assert k.launches == 1
 
 
-def test_shared_memory_limit_of_beam_select():
-    assert (kernels.beam_select_smem_bytes(2560, 1024)
-            <= kernels.MAX_DYNAMIC_SMEM)
-    assert (kernels.beam_select_smem_bytes(4096, 1024)
-            <= kernels.MAX_DYNAMIC_SMEM)
-    assert (kernels.beam_select_smem_bytes(4160, 128)
-            > kernels.MAX_DYNAMIC_SMEM)
+@pytest.mark.parametrize("B,R", [(64, 128), (16, 512), (8, 1024)])
+def test_beam_select_plan_takes_every_padded_width(B, R):
+    """Every width the orchestrator pads to (multiples of 64 up to the int16
+    trace's 32768) gets a cluster that splits the row evenly and fits in
+    shared memory; batch·C reaches the CTAs a launch aims for unless C is
+    the largest size."""
+    for W in range(64, kernels.MAX_BEAM_WIDTH + 1, 64):
+        plan = kernels.beam_select_plan(B, W, R)
+        C = plan.cluster
+        assert C in (1, 2, 4, 8, 16), (W, plan)
+        assert W % C == 0 and C * (W // C) == W, (W, plan)
+        assert plan.smem <= kernels.MAX_DYNAMIC_SMEM, (W, plan)
+        assert 8 * 4 * (W // C) + 4 * R <= plan.smem, (W, plan)
+        assert plan.sample >= 1 and plan.sample & (plan.sample - 1) == 0
+        assert plan.threads % 32 == 0 and plan.threads <= 1024, (W, plan)
+        assert (B * C >= kernels.BEAM_SELECT_CTAS
+                or C == max(kernels.BEAM_CLUSTER_SIZES)), (W, plan)
+
+
+def test_beam_select_plan_refuses_widths_past_the_int16_trace():
+    with pytest.raises(ValueError, match="int16"):
+        kernels.beam_select_plan(8, kernels.MAX_BEAM_WIDTH + 64, 1024)

@@ -39,8 +39,12 @@ def _inputs(B, R, V, seed):
 
 
 @pytest.mark.parametrize("B,R,V,W", [(4, 32, 40, 64), (3, 130, 20, 256),
-                                     (2, 128, 16, 2560)])
+                                     (2, 128, 16, 2560), (2, 128, 16, 5056),
+                                     (1, 64, 12, 32768), (8, 1024, 8, 1024)])
 def test_tile_chain_and_backtrace_on_card_match_cpu(cuda, B, R, V, W):
+    """One beam_select launch a column, whatever the cluster size
+    (kernels.beam_select_plan: the largest, 8 CTAs a row, for the last
+    three)."""
     packed, skip = _inputs(B, R, V, seed=B + W)
     before = kernels.launch_counts()
     results = []
@@ -57,6 +61,24 @@ def test_tile_chain_and_backtrace_on_card_match_cpu(cuda, B, R, V, W):
     assert after["beam_select"] - before["beam_select"] == V
     assert after["permute_update"] - before["permute_update"] == V
     assert after["backtrace"] - before["backtrace"] == 1
+
+
+def test_beam_select_past_the_int16_trace_raises(cuda):
+    B, R, V, W = 1, 32, 2, kernels.MAX_BEAM_WIDTH + 64
+    packed, skip = _inputs(B, R, V, seed=0)
+    state = beam.beam_init_device(B, R, W, cuda)
+    traces = (torch.empty((V, B, W), dtype=torch.int16, device=cuda),
+              torch.empty((V, B, W), dtype=torch.int8, device=cuda),
+              torch.empty((V, B), dtype=torch.int32, device=cuda),
+              torch.empty((V, B), dtype=torch.int32, device=cuda))
+    scratch = (torch.empty((B, W), dtype=torch.int32, device=cuda),
+               torch.empty((B, R), dtype=torch.int32, device=cuda),
+               torch.empty((B, R), dtype=torch.int32, device=cuda))
+    before = kernels.launch_counts()["beam_select"]
+    with pytest.raises(ValueError, match="int16"):
+        beam.beam_select(*state, packed.to(cuda), skip.to(cuda), 0, traces,
+                         scratch)
+    assert kernels.launch_counts()["beam_select"] == before
 
 
 @pytest.mark.parametrize("H", [32, 128, 512])
