@@ -25,6 +25,13 @@ line:
      golden dataset over its window graph), timed. Then time the window
      alone (a batch of one, as one read per launch was timed before) and a
      batch of WFA_BATCH copies of it; every time beside its bound;
+  3c. hold both branches of the backtrace kernel (the streamed walk and the
+     direct chain) against the plain version, exactly, on seeded synthetic
+     traces at the main path's launch shapes (BACKTRACE_SHAPES) and along
+     BACKTRACE_SWEEP, which places the plan's crossover; cold times of
+     both branches beside the bound (one path's bytes), the stream floor
+     (the whole trace's bytes over the memory rate), the floor of what the
+     streamed walk reads (the parents) and the plain version's time;
   4. the golden end-to-end dataset (tests/test_e2e_golden.py's settings,
      dual mode) through ``hiphase_tpu_torch.cli.main(... --engine cuda)``:
      its sha256 must be the committed one;
@@ -37,6 +44,11 @@ line:
   5b. the golden dataset in local mode at --phase-min-queue-size 5000
      (beam width 5056) with --engine cuda, record-identical to the same
      reference engine, every beam kernel launched;
+  5c. phaser.solve_block(solver="beam" and "beam-full") over the first
+     SOLVE_BLOCKS multi-variant blocks of the golden dataset on the card
+     (widths 256 and 1000, unpadded, one block a batch), each result equal
+     to the same call on the CPU, every beam kernel launched (each block's
+     host half, prepare_block, runs once for its four calls);
   6. the golden dataset again with --engine cuda --wfa-engine device: the
      same committed sha256, every kernel launched, reads certified on the
      device at H = 512;
@@ -90,6 +102,21 @@ WFA_H = (32, 128, 512)
 WFA_GRAPH_SEEDS = (0, 1, 2, 3)
 WFA_BATCH = 256
 BEAM_KERNELS = ("beam_select", "permute_update", "backtrace")
+# step 3c's backtrace launches (B, W, V): one 128-column tile, the dual 1 Mb
+# and local 6 Mb batches at every slot bucket, the wide beams; then the
+# sweep that places the crossover in kernels.backtrace_plan. BACKTRACE_MAIN
+# is the kernel line's shape (the local 6 Mb batch).
+BACKTRACE_SHAPES = ((64, 1024, 128), (64, 1024, 384), (64, 1024, 1280),
+                    (16, 1024, 1280), (8, 1024, 1280), (16, 5056, 384),
+                    (8, 8192, 384), (4, 32768, 384))
+BACKTRACE_SWEEP = tuple((B, W, 384) for B in (64, 8)
+                        for W in (2048, 4096, 8192, 16384, 32768))
+BACKTRACE_MAIN = (64, 1024, 1280)
+# rewritten before each timed backtrace launch: 2.5x the H100's 50 MB L2
+L2_FLUSH_BYTES = 128 << 20
+# step 5c: multi-variant blocks of the golden dataset through
+# phaser.solve_block on the card and on the CPU
+SOLVE_BLOCKS = 20
 
 # The least time the card could take for a kernel's work (`bound`): the
 # larger of its bytes over the memory rate and its int32 operations over
@@ -181,27 +208,36 @@ def make_inputs(B, R, T, seed, device):
             torch.from_numpy(skip).to(device))
 
 
-def median_ms(fn, reps=TIMING_REPS) -> float:
+def median_ms(fn, reps=TIMING_REPS, flush=None) -> float:
     """Median device time of one call of ``fn``, in ms. Every timed call
     and its events are queued behind a GPU sleep longer than the host
     needs to enqueue them, so the events measure the device's work and not
-    the host's launch overhead (which the end-to-end run sees separately)."""
+    the host's launch overhead (which the end-to-end run sees separately).
+    With ``flush``, flush() runs before each call, outside its events."""
     import torch
-    for _ in range(3):
+
+    def rep():
+        if flush is not None:
+            flush()
         fn()
+    for _ in range(3):
+        rep()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    rep()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     torch.cuda._sleep(int(4e9 * host_s * reps) + 10_000_000)  # ≥ 2x at 2 GHz
-    events[0].record()
-    for i in range(reps):
+    for start, end in zip(starts, ends):
+        if flush is not None:
+            flush()
+        start.record()
         fn()
-        events[i + 1].record()
-    events[-1].synchronize()
-    times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+        end.record()
+    ends[-1].synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in zip(starts, ends))
     return times[reps // 2]
 
 
@@ -343,9 +379,6 @@ def check_kernels(device) -> dict:
                 lambda: beam.permute_update(pre[0], idx, *p_scr, out=out),
                 lambda: beam.permute_update_plain(pre[0], idx, *p_scr,
                                                   out=out)),
-            "backtrace": (
-                lambda: beam.backtrace_tile(slot, p_tr[0], p_tr[1], skip),
-                lambda: beam.backtrace_plain(slot, p_tr[0], p_tr[1], skip)),
         }
         counts = kernels.launch_counts()
         bounds = beam_bounds(B, R, W, T)
@@ -374,6 +407,84 @@ def check_kernels(device) -> dict:
             raise AssertionError(f"kernel disagrees with its plain version "
                                  f"at (B, R, W) = ({B}, {R}, {W}): {errs}")
     return results
+
+
+def random_trace(B: int, V: int, W: int, seed: int, device):
+    """A seeded synthetic trace on ``device``, as beam_select leaves one:
+    parents uniform in [0, W), choices in [0, 4), ~10 % skipped columns;
+    the walk starts from slot 0."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return (torch.zeros(B, dtype=torch.int32, device=device),
+            torch.randint(0, W, (V, B, W), generator=g, device=device,
+                          dtype=torch.int16),
+            torch.randint(0, 4, (V, B, W), generator=g, device=device,
+                          dtype=torch.int8),
+            torch.rand((B, V), generator=g, device=device) < 0.1)
+
+
+def check_backtrace(device) -> dict:
+    """Both branches of the backtrace kernel (the streamed walk and the
+    direct chain, the kernel's first design) against the plain version,
+    exactly, on seeded synthetic traces at the main path's launch shapes
+    and along the crossover sweep; median times of both branches beside
+    the bound (the bytes of one path a row), the stream floor (the whole
+    trace's bytes over the memory rate), the floor of what the streamed
+    walk reads and, at the main path's shapes, the plain version's time.
+    The kernel's times are cold, as on the main path, where the column
+    chain's δ traffic has evicted the trace from L2 by the time the
+    backtrace runs: L2_FLUSH_BYTES are rewritten before each launch.
+    Returns the kernel line's entry, at BACKTRACE_MAIN."""
+    import dataclasses
+
+    import torch
+
+    from hiphase_tpu_torch import kernels
+    from hiphase_tpu_torch.phasing import beam
+    l2 = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+
+    def flush():
+        l2.add_(1)
+    entry = {}
+    shapes = [(s, True) for s in BACKTRACE_SHAPES] + [
+        (s, False) for s in BACKTRACE_SWEEP if s not in BACKTRACE_SHAPES]
+    err = 0
+    for i, ((B, W, V), main_path) in enumerate(shapes):
+        trace = random_trace(B, V, W, seed=200 + i, device=device)
+        want = beam.backtrace_plain(*trace)
+        plan = kernels.backtrace_plan(B, W, V)
+        line = {"B": B, "W": W, "V": V, "plan_branch": plan.branch,
+                "stages": plan.stages, "cols": plan.cols, "smem": plan.smem}
+        for branch in ("stream", "direct"):
+            forced = dataclasses.replace(plan, branch=branch)
+            got = beam._backtrace_launch(forced, *trace)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            err = max(err, e)
+            line[f"{branch}_err"] = e
+            line[f"{branch}_ms"] = median_ms(
+                lambda: beam._backtrace_launch(forced, *trace), flush=flush)
+        bd = beam_bounds(B, 0, W, V)["backtrace"]
+        # the whole trace, and what the streamed walk reads of it (the
+        # parents, one choice a column and the skip flags; h1 / h2 written)
+        line.update(bd, stream_floor_ms=3 * B * V * W / HBM_BYTES_PER_S * 1e3,
+                    parents_floor_ms=(2 * B * V * W + 4 * B * V)
+                    / HBM_BYTES_PER_S * 1e3)
+        if main_path:
+            line["plain_ms"] = median_ms(lambda: beam.backtrace_plain(*trace),
+                                         reps=3)
+        if (B, W, V) == BACKTRACE_MAIN:
+            entry = {"ms": line[f"{plan.branch}_ms"],
+                     "plain_ms": line["plain_ms"], **bd, "library_ms": None}
+        log("backtrace " + json.dumps(line))
+        del trace, want
+    del l2
+    torch.cuda.empty_cache()
+    if err:
+        raise AssertionError(f"backtrace disagrees with its plain version: "
+                             f"max error {err}")
+    return {"max_abs_err": err, **entry}
 
 
 def tile_enqueue_us(fresh, packed, skip, W) -> dict:
@@ -814,6 +925,78 @@ def check_wide_golden(workdir: str, meta: dict, host_engine: str) -> dict:
     return launches
 
 
+def check_solve_block(meta: dict, device) -> dict:
+    """Step 5c: phaser.solve_block on the beam at width 256 ("beam") and
+    at the default queue size unpadded ("beam-full", W = 1000), on the
+    card, over the first SOLVE_BLOCKS multi-variant blocks of the golden
+    dataset; each result must equal the same call on the CPU. Every beam
+    kernel must launch. A block's prepare_block (its pure-Python host
+    half, which reads and does not depend on the solver or the device) runs
+    once and serves the block's four calls."""
+    from unittest import mock
+
+    import torch
+
+    from hiphase_tpu_torch import kernels
+    from hiphase_tpu_torch.core.reference_genome import ReferenceGenome
+    from hiphase_tpu_torch.io.vcf import get_vcf_samples
+    from hiphase_tpu_torch.phasing import phaser
+    from hiphase_tpu_torch.phasing.block_gen import PhaseBlockIterator
+    from hiphase_tpu_torch.utils.compare import plain_values
+    reference = ReferenceGenome.from_fasta(meta["fasta"])
+    sample = get_vcf_samples(meta["vcf"])[0]
+    blocks = []
+    for block in PhaseBlockIterator([meta["vcf"]], [meta["bam"]], sample,
+                                    min_quality=0, min_mapq=5,
+                                    min_spanning_reads=1,
+                                    allow_supplemental_joins=True):
+        if not block.unphased_block and block.num_variants > 1:
+            blocks.append(block)
+            if len(blocks) == SOLVE_BLOCKS:
+                break
+    summary = {"blocks": len(blocks),
+               "variants": [b.num_variants for b in blocks]}
+    prepared = {}
+
+    def prepare_once(block, *args):
+        if block.block_index not in prepared:
+            prepared[block.block_index] = prepare(block, *args)
+        return prepared[block.block_index]
+    prepare = phaser.prepare_block
+    cpu = torch.device("cpu")
+    launches = {k: 0 for k in kernels.KERNELS}
+    with mock.patch.object(phaser, "prepare_block", prepare_once):
+        for solver in ("beam", "beam-full"):
+            card_s = cpu_s = 0.0
+            for block in blocks:
+                def solve(dev):
+                    return phaser.solve_block(
+                        block, [meta["vcf"]], [meta["bam"]], reference,
+                        solver=solver, device=dev)
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                got = solve(device)
+                card_s += time.perf_counter() - t0
+                for k, n in kernels.launch_counts().items():
+                    launches[k] += n
+                t0 = time.perf_counter()
+                want = solve(cpu)
+                cpu_s += time.perf_counter() - t0
+                if plain_values(got) != plain_values(want):
+                    raise AssertionError(
+                        f"solve_block(solver={solver!r}) on the card differs "
+                        f"from the CPU at block {block.block_index}")
+            summary[solver] = {"card_seconds": card_s, "cpu_seconds": cpu_s,
+                               "identical": True}
+    summary["kernel_launches"] = launches
+    log("solve_block " + json.dumps(summary))
+    missing = [k for k in BEAM_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by solve_block: "
+                             f"{missing}")
+    return launches
+
+
 def check_dual_bench(workdir: str, total_mb: int) -> dict:
     """bench_e2e.py --global's configuration with --wfa-engine device,
     record-identical to --wfa-engine host; every kernel launched, and a few
@@ -941,8 +1124,13 @@ def main() -> int:
     for name, b in built.items():
         log(f"  {name}: {b.library.name}; " + ptxas_summary(b.log))
 
-    # 3. beam kernels against their plain versions
+    # 3. beam kernels against their plain versions; 3c. both branches of
+    # the backtrace at the main path's launch shapes
     checks = check_kernels(device)
+    bt = check_backtrace(device)
+    bt["max_abs_err"] = max(bt["max_abs_err"],
+                            checks["backtrace"]["max_abs_err"])
+    checks["backtrace"] = bt
 
     with tempfile.TemporaryDirectory(prefix="hiphase_smoke_") as workdir:
         golden_meta = build_golden(workdir)
@@ -960,6 +1148,8 @@ def main() -> int:
         launches = check_local_bench(workdir, host_engine, total_mb)
         # 5b. the widths that one CTA's shared memory did not hold
         check_wide_golden(workdir, golden_meta, host_engine)
+        # 5c. the single-block path at unpadded widths
+        check_solve_block(golden_meta, device)
         # 6. golden dataset, dual mode on the device WFA; four prepare
         # threads keep several WFA launches in flight (the output does
         # not depend on the thread count)

@@ -82,7 +82,7 @@ PERMUTE_UPDATE = Kernel(
     [P, P, P, P, P, P, I, I, I, I, P])
 BACKTRACE = Kernel(
     "backtrace", "hiphase_tpu/phasing/beam.py:363 (backtrace_tile)",
-    [P, P, P, P, I, I, I, P, P, P, I, P])
+    [P, P, P, P, I, I, I, I, I, I, I, P, P, P, I, P])
 WFA_FORWARD_BACKWARD = Kernel(
     "wfa_forward_backward",
     "hiphase_tpu/align/wfa_device.py:111 (wfa_forward_backward)",
@@ -151,6 +151,68 @@ def beam_select_plan(batch: int, width: int, slots: int) -> BeamSelectPlan:
                          f"over {slots} slots in one cluster's shared memory")
     return next((f for f in fits if batch * f.cluster >= BEAM_SELECT_CTAS),
                 fits[-1])
+
+
+# backtrace: where the streamed walk gives way to the direct chain. A
+# streamed column is 2W bytes into one SM, at about 84 GB/s a SM, or at a
+# B-th of about 2.5 TB/s when B rows share the memory; a step of the direct
+# chain takes 0.5-0.6 µs. Measured on an H100 80GB HBM3 at 700 W
+# (chip_smoke.py step 3c, V = 384, cold trace, streamed / direct ms):
+# B = 8: 0.1505 / 0.1937 at W = 16384, 0.3064 / 0.1956 at 32768; B = 64:
+# 0.1688 / 0.2341 at W = 8192, 0.3266 / 0.2344 at 16384. The walk streams
+# while W ≤ BACKTRACE_STREAM_MAX_WIDTH and B·W ≤ BACKTRACE_STREAM_MAX_ROW_SUM.
+BACKTRACE_STREAM_MAX_WIDTH = 16384
+BACKTRACE_STREAM_MAX_ROW_SUM = 64 * 8192
+# the branch argument of the C entry point
+BACKTRACE_BRANCHES = {"direct": 0, "stream": 1}
+
+
+# columns a stage of the streamed walk may hold (its waits and hand-backs
+# are once a stage), and the stages its ring keeps at least where it can
+BACKTRACE_STAGE_COLUMNS = (16, 8, 4, 2, 1)
+BACKTRACE_MIN_STAGES = 4
+
+
+@dataclass(frozen=True)
+class BacktracePlan:
+    branch: str    # "stream" (the walk through a shared ring) or "direct"
+    stages: int    # the streamed walk's ring: stages in shared memory
+    cols: int      # columns a stage
+    smem: int      # its dynamic shared bytes a CTA
+
+
+def backtrace_column_bytes(width: int) -> int:
+    """Shared bytes of one column of a ring stage: the 16-byte-aligned span
+    around a row's parents slice (2W bytes), wherever the slice starts."""
+    return (2 * width + 15) // 16 * 16 + 16
+
+
+def backtrace_plan(batch: int, width: int, columns: int,
+                   aligned: bool = True) -> BacktracePlan:
+    """The launch of backtrace over a [columns, batch, width] trace: the
+    streamed walk's ring and the branch to take, the direct chain past the
+    measured crossover (BACKTRACE_STREAM_MAX_WIDTH, and
+    BACKTRACE_STREAM_MAX_ROW_SUM for batch·width) and for a parents trace
+    whose base is not ``aligned`` to 16 bytes, which the walk's bulk copies
+    cannot read. A stage holds the most
+    columns (of BACKTRACE_STAGE_COLUMNS) that leave BACKTRACE_MIN_STAGES
+    stages in shared memory, one column where none does; the ring has as
+    many stages as fit (each with two 8-byte mbarriers), at most enough for
+    ``columns`` (three of one column at W = 32768)."""
+    if width > MAX_BEAM_WIDTH:
+        raise ValueError(
+            f"beam width {width} > {MAX_BEAM_WIDTH}: the parents trace is "
+            f"int16, so a slot's parent index would overflow it")
+    col = backtrace_column_bytes(width)
+    cols = next((g for g in BACKTRACE_STAGE_COLUMNS
+                 if MAX_DYNAMIC_SMEM // (g * col + 16)
+                 >= BACKTRACE_MIN_STAGES), 1)
+    per = cols * col + 16
+    stages = min(MAX_DYNAMIC_SMEM // per, max(-(-columns // cols), 1))
+    stream = (aligned and width <= BACKTRACE_STREAM_MAX_WIDTH
+              and batch * width <= BACKTRACE_STREAM_MAX_ROW_SUM)
+    branch = "stream" if stream else "direct"
+    return BacktracePlan(branch, stages, cols, stages * per)
 
 
 def build_all() -> dict[str, build.BuiltKernel]:

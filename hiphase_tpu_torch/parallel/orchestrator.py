@@ -23,17 +23,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from hiphase_tpu_torch.core.variants import AlleleType, VariantType
 from hiphase_tpu_torch.phasing.astar import astar_solver
-from hiphase_tpu_torch.phasing.phaser import BlockData, finalize_block
+from hiphase_tpu_torch.phasing.phaser import (
+    AMB, BlockData, beam_phase_stats, finalize_block,
+)
 from hiphase_tpu_torch.writers.phase_stats import PhaseStats
 from hiphase_tpu_torch.phasing.beam import (
     PACK_PAD, assign_slots, beam_init_device, fetch_haplotypes, max_hets_for,
     pack_inputs, pack_job_stats, tensorize_block, tiles_backtrace_packed,
     tiles_forward_packed, unpack_job_stats,
 )
-
-AMB = int(AlleleType.AMBIGUOUS)
 
 # slot-bucket ladder (padded concurrent-read capacities); beyond it the
 # block goes to the host A* oracle
@@ -61,12 +60,10 @@ def _pad_width(w: int) -> int:
 def _stats_from_beam(data: BlockData, h1, h2, cost: int, pruned: int,
                      estimate: bool = False, min_queue_size: int = 1000,
                      queue_increment: int = 3) -> PhaseStats:
-    phased = sum(1 for a, b in zip(h1, h2) if a != b)
-    phased_snvs = sum(
-        1 for i, (a, b) in enumerate(zip(h1, h2))
-        if a != b and data.variants[i].variant_type == VariantType.SNV)
-    skipped = sum(1 for a, b in zip(h1, h2) if a == b == AMB)
-    hom = len(h1) - phased - skipped
+    """The block's PhaseStats in the host A* oracle's units, which the
+    --stats-file reports (`phaser.beam_phase_stats`), and with ``estimate``
+    the oracle's heuristic estimate."""
+    estimated = None
     if estimate:
         # --stats-file semantics: estimated_cost is the root value of the
         # reference's right-to-left heuristic sweep
@@ -78,10 +75,8 @@ def _stats_from_beam(data: BlockData, h1, h2, cost: int, pruned: int,
             len(data.variants), MAX_SEGMENT_SIZE, reads, min_queue_size,
             queue_increment, [v.is_ignored for v in data.variants])
         estimated = heuristics[0]
-    else:
-        estimated = cost
-    return PhaseStats(pruned, estimated, cost, phased, phased_snvs, hom,
-                      skipped)
+    return beam_phase_stats(data, h1, h2, cost, pruned, estimated,
+                            oracle_units=True)
 
 
 @dataclass

@@ -312,7 +312,20 @@ def backtrace_tile(slot, parents, choices, skip):
     if slot.device.type == "cpu":
         return backtrace_plain(slot, parents, choices, skip)
     T, B, W = parents.shape
+    plan = kernels.backtrace_plan(B, W, T,
+                                  aligned=parents.data_ptr() % 16 == 0)
+    return _backtrace_launch(plan, slot, parents, choices, skip)
+
+
+def _backtrace_launch(plan, slot, parents, choices, skip):
+    """`backtrace_tile` on a CUDA device through ``plan``'s branch, as
+    given: a caller that compares the branches replaces it
+    (``dataclasses.replace(plan, branch=...)``)."""
+    T, B, W = parents.shape
     dev = slot.device
+    if dev.type != "cuda":
+        raise ValueError(f"_backtrace_launch launches the kernel; the "
+                         f"tensors are on {dev}")
     for name, t, dt, shape in (
             ("slot", slot, torch.int32, (B,)),
             ("parents", parents, torch.int16, (T, B, W)),
@@ -322,10 +335,13 @@ def backtrace_tile(slot, parents, choices, skip):
     slot_out = torch.empty_like(slot)
     h1 = torch.empty((T, B), dtype=torch.uint8, device=dev)
     h2 = torch.empty((T, B), dtype=torch.uint8, device=dev)
+    if T == 0 or B == 0:
+        return slot_out.copy_(slot), h1, h2
     kernels.BACKTRACE.launch(
         slot.data_ptr(), parents.data_ptr(), choices.data_ptr(),
-        skip.data_ptr(), T, B, W, slot_out.data_ptr(), h1.data_ptr(),
-        h2.data_ptr(), dev.index, _stream(dev))
+        skip.data_ptr(), T, B, W, kernels.BACKTRACE_BRANCHES[plan.branch],
+        plan.stages, plan.cols, plan.smem, slot_out.data_ptr(),
+        h1.data_ptr(), h2.data_ptr(), dev.index, _stream(dev))
     return slot_out, h1, h2
 
 

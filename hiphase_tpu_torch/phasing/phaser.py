@@ -509,29 +509,94 @@ def create_unphased_result(phase_problem: PhaseBlock
     ), HaplotagResult(phase_block=phase_problem))
 
 
+def unset_allele_cost(data: BlockData) -> int:
+    """What the host A* oracle adds to the cost of every solution of a
+    block: the quals of each read's unset alleles (ambiguous, or no overlap
+    inside its window) at the variants it phases, which it charges against
+    both haplotypes (`astar._BlockReads.delta`). The beam leaves this
+    constant out of its cost."""
+    segs = data.read_segments
+    if not segs:
+        return 0
+    alleles = np.concatenate([rs.alleles for rs in segs])
+    quals = np.concatenate([rs.quals for rs in segs])
+    starts = np.fromiter((rs.start for rs in segs), np.int64, len(segs))
+    lens = np.fromiter((len(rs.alleles) for rs in segs), np.int64, len(segs))
+    # the variant of each concatenated allele: its read's start plus its
+    # offset inside the read
+    variant = np.arange(alleles.size) + np.repeat(
+        starts - (np.cumsum(lens) - lens), lens)
+    ignored = np.fromiter((v.is_ignored for v in data.variants), bool,
+                          len(data.variants))
+    unset = (alleles >= AMB) & ~ignored[variant]
+    return int(quals[unset].sum(dtype=np.int64))
+
+
+def beam_phase_stats(data: BlockData, h1: list[int], h2: list[int],
+                     cost: int, pruned: int, estimated_cost: int | None = None,
+                     *, oracle_units: bool) -> PhaseStats:
+    """PhaseStats of a beam solution: phased, SNV, homozygous and skipped
+    counts from its haplotypes, and its cost in one of two units. The
+    beam's own cost leaves out `unset_allele_cost`; `solve_block` reports
+    it so, as the JAX package's does. With ``oracle_units`` the constant is
+    added, so that the cost equals the host A* oracle's: the batched
+    engines report it so in the --stats-file. ``estimated_cost`` (in the
+    same units) defaults to the reported cost."""
+    if oracle_units:
+        cost += unset_allele_cost(data)
+    if estimated_cost is None:
+        estimated_cost = cost
+    phased = sum(1 for a, b in zip(h1, h2) if a != b)
+    phased_snvs = sum(
+        1 for i, (a, b) in enumerate(zip(h1, h2))
+        if a != b and data.variants[i].variant_type == VariantType.SNV)
+    skipped = sum(1 for a, b in zip(h1, h2) if a == b == AMB)
+    hom = len(h1) - phased - skipped
+    return PhaseStats(pruned, estimated_cost, cost, phased, phased_snvs, hom,
+                      skipped)
+
+
 def solve_block(phase_problem: PhaseBlock, vcf_paths: list[str],
                 bam_paths: list[str], reference_genome: ReferenceGenome,
                 reference_buffer: int = 15, min_matched_alleles: int = 2,
                 min_mapq: int = 5, min_queue_size: int = 1000,
                 queue_increment: int = 3,
                 global_config: read_parsing.GlobalRealignmentConfig | None = None,
-                solver: str = "astar"
+                solver: str = "astar", *,
+                device: torch.device | None = None
                 ) -> tuple[PhaseResult, HaplotagResult]:
-    """Single-block convenience path on the host A* oracle
-    (ref: phaser.rs:406-649). The beam engines batch many blocks around
-    prepare/finalize (`parallel.orchestrator`, `phasing.native_beam`)."""
-    if solver != "astar":
-        raise ValueError(f"solve_block runs the host A* oracle only, not "
-                         f"{solver!r}")
+    """Single-block convenience path (ref: phaser.rs:406-649): the host A*
+    oracle for ``solver="astar"``, else the beam on ``device`` (None: the
+    CUDA device, raising `DeviceUnavailableError` without one) at width
+    256, or at ``min_queue_size`` for ``"beam-full"``, unpadded. The beam
+    engines batch many blocks around prepare/finalize
+    (`parallel.orchestrator`, `phasing.native_beam`)."""
     if phase_problem.num_variants == 0:
         return _empty_result(phase_problem)
+    if solver != "astar":
+        from hiphase_tpu_torch.device import resolve_device
+        device = resolve_device(device)
 
     data = prepare_block(phase_problem, vcf_paths, bam_paths,
                          reference_genome, reference_buffer,
                          min_matched_alleles, min_mapq, global_config)
 
-    result = astar_solver(phase_problem.block_index, data.variants,
-                          data.read_segments, min_queue_size,
-                          queue_increment)
-    return finalize_block(data, result.haplotype_1, result.haplotype_2,
-                          result.statistics)
+    if solver == "astar":
+        result = astar_solver(phase_problem.block_index, data.variants,
+                              data.read_segments, min_queue_size,
+                              queue_increment)
+        return finalize_block(data, result.haplotype_1, result.haplotype_2,
+                              result.statistics)
+    from hiphase_tpu_torch.phasing.beam import solve_blocks, tensorize_block
+    nv = len(data.variants)
+    nr = max(len(data.read_segments), 1)
+    alleles, quals, skip = tensorize_block(data.read_segments, data.variants,
+                                           nr, nv)
+    beam_width = min_queue_size if solver == "beam-full" else 256
+    res = solve_blocks(alleles[None], quals[None], skip[None],
+                       beam_width=beam_width, device=device)
+    h1 = [int(x) for x in res.h1[0][:nv]]
+    h2 = [int(x) for x in res.h2[0][:nv]]
+    return finalize_block(data, h1, h2, beam_phase_stats(
+        data, h1, h2, int(res.cost[0]), int(res.pruned[0]),
+        oracle_units=False))

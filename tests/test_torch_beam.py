@@ -8,6 +8,8 @@ The port runs its plain PyTorch versions here because its tensors lie on
 the CPU.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -367,3 +369,67 @@ def test_beam_select_plan_takes_every_padded_width(B, R):
 def test_beam_select_plan_refuses_widths_past_the_int16_trace():
     with pytest.raises(ValueError, match="int16"):
         kernels.beam_select_plan(8, kernels.MAX_BEAM_WIDTH + 64, 1024)
+
+
+def _up16(n):
+    return (n + 15) // 16 * 16
+
+
+@pytest.mark.parametrize("B,V", [(64, 1280), (16, 384), (8, 1), (4, 3)])
+def test_backtrace_plan_fits_a_ring_at_every_width(B, V):
+    """Every width beam_select takes (the padded multiples of 64 up to the
+    int16 trace's 32768, and solve_block's unpadded 200, 256 and 1000) gets
+    a ring that fits in shared memory: at least one stage, no more than
+    the V columns need, as many as fit, and at least
+    BACKTRACE_MIN_STAGES where a stage holds more than one column; a
+    column holds the 16-byte-aligned span around a row's parents slice at
+    any offset. The direct chain takes the widths past the crossover: above
+    8192 at B = 64, above 16384 at the smaller buckets."""
+    cap = kernels.MAX_DYNAMIC_SMEM
+    for W in [200, 256, 1000] + list(range(64, kernels.MAX_BEAM_WIDTH + 1,
+                                           64)):
+        plan = kernels.backtrace_plan(B, W, V)
+        col = kernels.backtrace_column_bytes(W)
+        per = plan.cols * col + 16
+        need = -(-V // plan.cols)
+        assert plan.cols in kernels.BACKTRACE_STAGE_COLUMNS, (W, plan)
+        assert 1 <= plan.stages <= need, (W, plan)
+        assert plan.smem == plan.stages * per <= cap, (W, plan)
+        assert plan.stages == need or (plan.stages + 1) * per > cap
+        assert (plan.cols == 1
+                or cap // per >= kernels.BACKTRACE_MIN_STAGES), (W, plan)
+        assert max(_up16(r + 2 * W) for r in range(0, 16, 2)) <= col, W
+        stream = (W <= kernels.BACKTRACE_STREAM_MAX_WIDTH
+                  and B * W <= kernels.BACKTRACE_STREAM_MAX_ROW_SUM)
+        assert plan.branch == ("stream" if stream else "direct"), (W, plan)
+    assert kernels.backtrace_plan(B, kernels.MAX_BEAM_WIDTH, V).stages >= \
+        min(2, V)
+    assert kernels.backtrace_plan(B, 8192, V).branch == "stream"
+    assert kernels.backtrace_plan(B, 32768, V).branch == "direct"
+
+
+def test_backtrace_plan_refuses_widths_past_the_int16_trace():
+    with pytest.raises(ValueError, match="int16"):
+        kernels.backtrace_plan(8, kernels.MAX_BEAM_WIDTH + 1, 384)
+
+
+@pytest.mark.parametrize("W", [200, 1000, 8192, 32768])
+def test_backtrace_plan_of_an_unaligned_trace_takes_the_direct_chain(W):
+    """A parents trace whose base is not 16-byte aligned cannot feed the
+    walk's bulk copies: the plan gives the direct chain, the ring as it
+    would be otherwise."""
+    plan = kernels.backtrace_plan(8, W, 384)
+    unaligned = kernels.backtrace_plan(8, W, 384, aligned=False)
+    assert unaligned == dataclasses.replace(plan, branch="direct")
+
+
+def test_backtrace_branch_needs_a_cuda_device():
+    """The launcher that a forced branch goes through refuses CPU tensors:
+    on the CPU only backtrace_tile runs, through the plain version."""
+    T, B, W = 3, 2, 64
+    plan = kernels.backtrace_plan(B, W, T)
+    with pytest.raises(ValueError, match="launches the kernel"):
+        tbeam._backtrace_launch(plan, torch.zeros(B, dtype=torch.int32),
+                                torch.zeros((T, B, W), dtype=torch.int16),
+                                torch.zeros((T, B, W), dtype=torch.int8),
+                                torch.zeros((B, T), dtype=torch.bool))

@@ -7,6 +7,8 @@ card. These tests need the card and nvcc, and skip elsewhere:
 takes its graphs from chip_smoke.py)
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -61,6 +63,68 @@ def test_tile_chain_and_backtrace_on_card_match_cpu(cuda, B, R, V, W):
     assert after["beam_select"] - before["beam_select"] == V
     assert after["permute_update"] - before["permute_update"] == V
     assert after["backtrace"] - before["backtrace"] == 1
+
+
+def _random_trace(B, V, W, seed):
+    """A seeded trace as beam_select leaves it (parents in [0, W), choices
+    in [0, 4)), ~10 % skipped columns and a carried slot in [0, W)."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, W, B).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, W, (V, B, W)).astype(np.int16)),
+            torch.from_numpy(rng.integers(0, 4, (V, B, W)).astype(np.int8)),
+            torch.from_numpy(rng.random((B, V)) < 0.1))
+
+
+@pytest.mark.parametrize("branch", ["stream", "direct"])
+@pytest.mark.parametrize("B,V,W", [
+    (8, 1, 1000), (64, 3, 200), (64, 1280, 1000), (8, 1280, 200),
+    (64, 384, 1024), (8, 385, 8192), (4, 40, 32768),
+    # slices at odd offsets, and tensors whose last slices end past their
+    # last 16-byte boundary
+    (3, 70, 999), (5, 37, 13)])
+def test_backtrace_on_card_matches_plain(cuda, B, V, W, branch):
+    """Both branches of the kernel against backtrace_plain on the CPU: a
+    single column, fewer columns than the ring holds, rings that wrap many
+    times (80 stages of 16 columns through a ring of 7 at V = 1280 and
+    W = 1000, 40 columns through 3 stages at W = 32768), and widths whose
+    slices are not 16-byte aligned."""
+    slot, parents, choices, skip = _random_trace(B, V, W, seed=B * V + W)
+    want = beam.backtrace_plain(slot, parents, choices, skip)
+    args = [t.to(cuda) for t in (slot, parents, choices, skip)]
+    before = kernels.launch_counts()["backtrace"]
+    plan = kernels.backtrace_plan(B, W, V)
+    got = beam._backtrace_launch(dataclasses.replace(plan, branch=branch),
+                                 *args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["backtrace"] - before == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    if branch == plan.branch:
+        got = beam.backtrace_tile(*args)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        assert kernels.launch_counts()["backtrace"] - before == 2
+
+
+def test_backtrace_of_unaligned_trace_views_takes_the_direct_chain(cuda):
+    """Trace views whose base is not 16-byte aligned cannot feed the bulk
+    copies: backtrace_tile walks them through the direct chain."""
+    B, V, W = 3, 9, 100
+    slot, parents, choices, skip = _random_trace(B, V + 1, W, seed=5)
+    parents, choices = parents.to(cuda)[1:], choices.to(cuda)[1:]
+    assert parents.data_ptr() % 16
+    skip = skip[:, 1:].contiguous()
+    plan = kernels.backtrace_plan(B, W, V)
+    assert plan.branch == "stream"
+    assert kernels.backtrace_plan(B, W, V, aligned=False) == \
+        dataclasses.replace(plan, branch="direct")
+    with pytest.raises(kernels.KernelLaunchError):
+        beam._backtrace_launch(plan, slot.to(cuda), parents, choices,
+                               skip.to(cuda))
+    got = beam.backtrace_tile(slot.to(cuda), parents, choices, skip.to(cuda))
+    want = beam.backtrace_plain(slot, parents.cpu(), choices.cpu(), skip)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_beam_select_past_the_int16_trace_raises(cuda):

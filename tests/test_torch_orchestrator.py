@@ -12,6 +12,7 @@ import hiphase_tpu_torch.parallel.orchestrator as torch_orch
 from hiphase_tpu.core.read_segments import ReadSegment
 from hiphase_tpu.core.variants import Variant
 from hiphase_tpu.phasing.phaser import BlockData
+from hiphase_tpu_torch.phasing import phaser as tphaser
 from hiphase_tpu_torch.phasing.native_beam import NativeBeamSolver
 
 from tests.test_solver import make_block
@@ -70,6 +71,41 @@ def test_stats_from_beam_matches(estimate):
     # each package has its own PhaseStats class: compare the fields
     assert type(got).__name__ == type(want).__name__ == "PhaseStats"
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def _block_with_unset_alleles(seed):
+    """A block whose reads carry quals at unset alleles: every third allele
+    inside a read's window made ambiguous, and one variant ignored."""
+    data = _block_data(seed)
+    for i, rs in enumerate(data.read_segments):
+        rs.alleles[1:-1:3] = torch_orch.AMB
+        rs.quals[1:-1:3] = 20 + i
+    data.variants[5].is_ignored = True
+    return data
+
+
+@pytest.mark.parametrize("estimate", [False, True])
+def test_stats_from_beam_adds_the_unset_allele_cost(estimate):
+    """The port's batched engines report the beam's cost in the host A*
+    oracle's units: the JAX package's cost plus the quals of the reads'
+    unset alleles at the variants that are not ignored."""
+    data = _block_with_unset_alleles(4)
+    unset = sum(int(q) for rs in data.read_segments
+                for k, (a, q) in enumerate(zip(rs.alleles, rs.quals))
+                if a >= torch_orch.AMB
+                and not data.variants[rs.start + k].is_ignored)
+    assert unset > 0
+    assert tphaser.unset_allele_cost(data) == unset
+    h1 = [0, 1, 2, 0, 1, 1, 0, 0, 1, 0, 1, 2]
+    h2 = [1, 0, 2, 1, 1, 0, 1, 0, 0, 1, 0, 2]
+    got = dataclasses.asdict(
+        torch_orch._stats_from_beam(data, h1, h2, 77, 3, estimate=estimate))
+    want = dataclasses.asdict(
+        jorch._stats_from_beam(data, h1, h2, 77, 3, estimate=estimate))
+    want["actual_cost"] += unset
+    if not estimate:
+        want["estimated_cost"] += unset
+    assert got == want
 
 
 def test_batched_solver_matches_native_and_counts_transfers():
