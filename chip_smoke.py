@@ -57,12 +57,25 @@ line:
      --wfa-engine host on the same data, every kernel launched, a few WFA
      launches per block (far fewer than reads). The genome is cut to
      DUAL_MB so that the whole script stays well inside its time limit,
-     and the cut is printed.
-Steps 6 and 7 print the device-WFA run's wall time, its WFA launches and
-the pairs each launch carried. Step 7 then runs the device-WFA
-configuration once more under torch.profiler and prints its device time by
-kernel and the device's busy share (the profiler slows the host, so the
-walls are those of the run before).
+     and the cut is printed;
+  8. step 6's configuration over several devices,
+     ``cli.main(argv, device=devs)``: every CUDA device when there are
+     several, else [cuda:0, cuda:0] (two row chunks of each batch on the one
+     card). The committed sha256, two host→device copies a chunk
+     (``transfers_per_batch`` 2·N), and N times step 6's beam_select and
+     backtrace launches (when N divides every bucket's batch);
+  9. step 6's configuration as a two-rank multi-host run: two processes
+     of a small script (MULTIHOST_RANK_SCRIPT) join a gloo group through a
+     ``file://`` store in the work directory and run ``cli.main`` on
+     cuda:0, each under a timeout. Rank 0's outputs must give the committed
+     sha256, rank 1 must write no output file, both ranks must launch
+     beam_select (each solves its share of the blocks), and neither may
+     load a module of JAX or of the JAX package.
+Steps 1-7 run on cuda:0 alone. Steps 6 and 7 print the device-WFA run's
+wall time, its WFA launches and the pairs each launch carried. Step 7 then
+runs the device-WFA configuration once more under torch.profiler and
+prints its device time by kernel and the device's busy share (the profiler
+slows the host, so the walls are those of the run before).
 
 The line before the last lists every kernel with its launches on the main
 path, its error against its plain version, its time, its plain version's
@@ -117,6 +130,30 @@ L2_FLUSH_BYTES = 128 << 20
 # step 5c: multi-variant blocks of the golden dataset through
 # phaser.solve_block on the card and on the CPU
 SOLVE_BLOCKS = 20
+# step 9: ranks of the multi-host run, and the seconds each may take
+MULTIHOST_RANKS = 2
+MULTIHOST_TIMEOUT_S = 600
+# step 9's rank script, run as ``python -c MULTIHOST_RANK_SCRIPT repo rank
+# store argv-json``: one rank of a multi-host run of the CLI on cuda:0;
+# prints its LAST_RUN_STATS and the modules of JAX or the JAX package it
+# loaded
+MULTIHOST_RANK_SCRIPT = r"""
+import datetime, json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from hiphase_tpu_torch import cli
+from hiphase_tpu_torch.parallel import multihost
+rank, store = int(sys.argv[2]), sys.argv[3]
+multihost.initialize("file://" + store, %d, rank,
+                     timeout=datetime.timedelta(seconds=%d))
+argv = [a.format(rank=rank) for a in json.loads(sys.argv[4])]
+cli.main(argv, device=torch.device("cuda", 0))
+foreign = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "hiphase_tpu"))
+print("RANK " + json.dumps({"rank": rank, "stats": cli.LAST_RUN_STATS,
+                            "foreign": foreign}), flush=True)
+torch.distributed.destroy_process_group()
+""" % (MULTIHOST_RANKS, MULTIHOST_TIMEOUT_S)
 
 # The least time the card could take for a kernel's work (`bound`): the
 # larger of its bytes over the memory rate and its int32 operations over
@@ -762,10 +799,15 @@ def check_wfa_kernel(device, window) -> dict:
 # ---------------------------------------------------------------------------
 # steps 4 to 7: the main paths through the CLI
 
-def run_cli(argv):
+def run_cli(argv, device=None):
+    """cli.main on ``device`` (cuda:0 unless given); returns the wall
+    seconds and the run's LAST_RUN_STATS."""
+    import torch
     from hiphase_tpu_torch import cli
     t0 = time.perf_counter()
-    if cli.main(argv) != 0:
+    if device is None:
+        device = torch.device("cuda", 0)
+    if cli.main(argv, device=device) != 0:
         raise AssertionError(f"cli exited non-zero: {argv}")
     return time.perf_counter() - t0, dict(cli.LAST_RUN_STATS)
 
@@ -787,29 +829,45 @@ def wfa_summary(secs: float, stats: dict) -> str:
             f"uncertified {wfa['uncertified']}")
 
 
+def golden_argv(meta: dict, out: list, wfa_engine: str,
+                threads: int) -> list:
+    """The golden dataset's CLI flags with --engine cuda, writing the VCF,
+    BAM and blocks file ``out``."""
+    return ["--bam", meta["bam"], "--vcf", meta["vcf"],
+            "--reference", meta["fasta"], "--output-vcf", out[0],
+            "--output-bam", out[1], "--blocks-file", out[2],
+            "--engine", "cuda", "--wfa-engine", wfa_engine,
+            "--threads", str(threads)]
+
+
+def golden_outputs(workdir: str, name: str) -> list:
+    return [os.path.join(workdir, f"golden.{name}.{x}")
+            for x in ("vcf.gz", "bam", "blocks.tsv")]
+
+
+def check_golden_digest(out: list, what: str) -> None:
+    from hiphase_tpu_torch.utils import golden
+    digest = golden.digest(golden.normalize(*out))
+    want = golden.committed_sha256()
+    log(f"golden {what}: sha256 {digest} (committed {want})")
+    if digest != want:
+        raise AssertionError(f"golden sha256 of {what} differs from the "
+                             f"committed one")
+
+
 def check_golden(workdir: str, meta: dict, wfa_engine: str,
                  threads: int = 1) -> dict:
     """The golden dataset with --engine cuda and the given --wfa-engine;
     with the device WFA, every kernel must launch in the run and some
     reads must certify on the device at H = 512."""
     from hiphase_tpu_torch import kernels
-    from hiphase_tpu_torch.utils import golden
-    out = [os.path.join(workdir, f"golden.{wfa_engine}.{x}")
-           for x in ("vcf.gz", "bam", "blocks.tsv")]
+    out = golden_outputs(workdir, wfa_engine)
     kernels.reset_launch_counts()
-    secs, stats = run_cli(["--bam", meta["bam"], "--vcf", meta["vcf"],
-                           "--reference", meta["fasta"],
-                           "--output-vcf", out[0], "--output-bam", out[1],
-                           "--blocks-file", out[2], "--engine", "cuda",
-                           "--wfa-engine", wfa_engine,
-                           "--threads", str(threads)])
+    secs, stats = run_cli(golden_argv(meta, out, wfa_engine, threads))
     launches = kernels.launch_counts()
-    digest = golden.digest(golden.normalize(*out))
-    want = golden.committed_sha256()
-    log(f"golden (--wfa-engine {wfa_engine}): sha256 {digest} (committed "
-        f"{want}), {secs:.2f} s, {json.dumps(stats)}")
-    if digest != want:
-        raise AssertionError("golden sha256 differs from the committed one")
+    log(f"golden (--wfa-engine {wfa_engine}): {secs:.2f} s, "
+        f"{json.dumps(stats)}")
+    check_golden_digest(out, f"--wfa-engine {wfa_engine}")
     if wfa_engine == "device":
         log("golden " + wfa_summary(secs, stats))
         missing = [k for k, n in launches.items() if n <= 0]
@@ -820,6 +878,98 @@ def check_golden(workdir: str, meta: dict, wfa_engine: str,
             raise AssertionError("no read certified on the device at "
                                  "H = 512")
     return launches
+
+
+def check_multi_device(workdir: str, meta: dict, step6: dict) -> dict:
+    """Step 8: step 6's configuration over every CUDA device, or over
+    [cuda:0, cuda:0] on a one-card machine; the committed sha256, 2·N
+    host→device copies a batch, and N times step 6's beam_select and
+    backtrace launches where N divides every bucket's batch (the batches
+    are then step 6's)."""
+    import torch
+
+    from hiphase_tpu_torch import kernels
+    from hiphase_tpu_torch.parallel.orchestrator import BUCKET_BATCH
+    n = torch.cuda.device_count()
+    devs = ([torch.device("cuda", i) for i in range(n)] if n > 1
+            else [torch.device("cuda", 0)] * 2)
+    out = golden_outputs(workdir, "devices")
+    kernels.reset_launch_counts()
+    secs, stats = run_cli(golden_argv(meta, out, "device", 4), device=devs)
+    launches = kernels.launch_counts()
+    log(f"multi-device golden over {len(devs)} row chunks "
+        f"({[str(d) for d in devs]}): {secs:.2f} s, {json.dumps(stats)}")
+    check_golden_digest(out, f"{len(devs)} row chunks")
+    if stats["transfers_per_batch"] != 2 * len(devs):
+        raise AssertionError(f"expected {2 * len(devs)} host→device copies "
+                             f"a batch, got {stats['transfers_per_batch']}")
+    if all(b % len(devs) == 0 for b in BUCKET_BATCH.values()):
+        for k in ("beam_select", "backtrace"):
+            if launches[k] != len(devs) * step6[k]:
+                raise AssertionError(
+                    f"{k}: {launches[k]} launches over {len(devs)} chunks, "
+                    f"expected {len(devs)} x step 6's {step6[k]}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the multi-device "
+                             f"path: {missing}")
+    return launches
+
+
+def check_multihost(workdir: str, meta: dict) -> None:
+    """Step 9: step 6's configuration as MULTIHOST_RANKS processes of one
+    gloo group on cuda:0. Rank 0's outputs give the committed sha256, the
+    other ranks write none, every rank launches beam_select and loads
+    nothing of JAX or of the JAX package."""
+    store = os.path.join(workdir, "multihost.store")
+    out = golden_outputs(workdir, "rank{rank}")
+    argv = json.dumps(golden_argv(meta, out, "device", 4))
+    # each rank writes to files, never to a pipe that nobody reads while
+    # another rank is waited on
+    logs = [os.path.join(workdir, f"multihost.rank{r}.{x}")
+            for r in range(MULTIHOST_RANKS) for x in ("out", "err")]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(MULTIHOST_RANKS):
+            with open(logs[2 * r], "w") as so, \
+                    open(logs[2 * r + 1], "w") as se:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", MULTIHOST_RANK_SCRIPT, HERE, str(r),
+                     store, argv], stdout=so, stderr=se, cwd=workdir))
+        deadline = time.monotonic() + MULTIHOST_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    ranks = []
+    for r, p in enumerate(procs):
+        with open(logs[2 * r]) as so, open(logs[2 * r + 1]) as se:
+            text, err = so.read(), se.read()
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}: "
+                                 f"{err[-3000:]}")
+        line = next(ln for ln in text.splitlines() if ln.startswith("RANK "))
+        ranks.append(json.loads(line[5:]))
+    for r in ranks:
+        log(f"multi-host rank {r['rank']} of {MULTIHOST_RANKS}: "
+            f"{json.dumps(r['stats'])}")
+    log(f"multi-host golden, {MULTIHOST_RANKS} ranks on cuda:0: {secs:.2f} s "
+        f"wall (process start to last exit)")
+    check_golden_digest([p.format(rank=0) for p in out], "multi-host rank 0")
+    for r in range(1, MULTIHOST_RANKS):
+        wrote = [p for p in out if os.path.exists(p.format(rank=r))]
+        if wrote:
+            raise AssertionError(f"rank {r} wrote output files: {wrote}")
+    for r in ranks:
+        if r["foreign"]:
+            raise AssertionError(f"rank {r['rank']} loaded {r['foreign']}")
+        if r["stats"]["kernel_launches"]["beam_select"] <= 0:
+            raise AssertionError(f"rank {r['rank']} launched no beam_select")
 
 
 def vcf_records(path):
@@ -1153,13 +1303,16 @@ def main() -> int:
         # 6. golden dataset, dual mode on the device WFA; four prepare
         # threads keep several WFA launches in flight (the output does
         # not depend on the thread count)
-        check_golden(workdir, golden_meta, "device", threads=4)
+        step6 = check_golden(workdir, golden_meta, "device", threads=4)
         # 7. the dual-mode benchmark configuration
         log(f"dual bench cut: total_mb 30 -> {DUAL_MB}, to keep the script "
             f"inside its time limit (host paths in pure Python: "
             f"{not native.available()})")
         launches["wfa_forward_backward"] = check_dual_bench(
             workdir, DUAL_MB)["wfa_forward_backward"]
+        # 8. step 6 over several devices (row chunks); 9. as two ranks
+        check_multi_device(workdir, golden_meta, step6)
+        check_multihost(workdir, golden_meta)
 
     table = [{"name": name, "route": "cuda",
               "source": os.path.relpath(k.source, HERE),

@@ -13,6 +13,9 @@ with the same behaviour. What runs on the card is this package's:
   kernels/                 nvcc build, ctypes bindings, launch counters
   csrc/*.cu                hand-written Hopper kernels (sm_90a)
   parallel/orchestrator.py batched device solver (buckets, tiles, escalation)
+  parallel/sharding.py     a batch split into one row chunk per device
+  parallel/multihost.py    several processes (a gloo group): sharded block
+                           stream, results replayed to rank 0
   parallel/engine_select.py  --engine auto resolution
   phasing/native_beam.py   the native C++ beam engine behind the solver interface
   cli.py                   ``python -m hiphase_tpu_torch.cli --engine cuda``

@@ -3,9 +3,19 @@
 The flag surface is the reference CLI's (``hiphase_tpu.cli``: the same
 flags, defaults and settings checks, copied here), with ``--engine
 {auto,cuda,native,astar}``: ``cuda`` is the batched device engine on the
-hand-written kernels. The pipeline is the JAX package's single-process
-path: streaming block generation, host prepare on a thread pool, the
-solver, ``finalize_block``, and the ordered writers on their own thread.
+hand-written kernels, over every CUDA device of the host unless `main` is
+given its devices (each batch split into one row chunk a device, see
+`parallel.sharding`). The pipeline is the JAX package's: streaming block
+generation, host prepare on a thread pool, the solver, ``finalize_block``,
+and the ordered writers on their own thread.
+
+Multi-host: when this process is one rank of several in a
+``torch.distributed`` group (`parallel.multihost.initialize`, then
+`main`), every rank walks the same global block stream and solves its
+round-robin share of the blocks, the other ranks' blocks passing as
+``skip``; results replay to rank 0 at a fixed cadence, and rank 0 alone
+writes the outputs, which equal a single-process run's. Each rank resolves
+its own engine.
 
 Differences from ``hiphase_tpu.cli``, all deliberate:
   * the device engine is not wrapped in a host fallback: a device or kernel
@@ -16,7 +26,9 @@ Differences from ``hiphase_tpu.cli``, all deliberate:
     with ``device=torch.device("cpu")``, its plain version) whatever the
     engine; with ``--engine astar`` it prepares blocks on threads of this
     process, never in forked workers (see `HostAStarSolver`);
-  * multi-host runs are not supported;
+  * a multi-host run refuses ``--engine astar`` (and an ``auto`` that
+    resolves to it) before any work: the JAX package has no multi-host
+    handling on its astar paths;
   * `main` raises on error instead of returning 1.
 """
 
@@ -29,10 +41,13 @@ import queue
 import sys
 import threading
 import time
+from collections.abc import Sequence
 
 import torch
 
 from hiphase_tpu_torch import kernels
+from hiphase_tpu_torch.device import resolve_devices
+from hiphase_tpu_torch.parallel import multihost as mh
 from hiphase_tpu_torch.parallel.engine_select import ENGINES, choose_engine
 from hiphase_tpu_torch.version import full_version
 
@@ -203,13 +218,15 @@ def global_realignment_config(args):
         wfa_engine=args.wfa_engine)
 
 
-def main(argv=None, device: torch.device | None = None) -> int:
+def main(argv=None, device: torch.device | Sequence | None = None) -> int:
     """Run the phaser; returns 0 or raises.
 
-    ``device`` is where the cuda engine and the device WFA
-    (``--wfa-engine device``) run: None means the current CUDA device (an
-    error when there is none); ``torch.device("cpu")`` runs the kernels'
-    plain PyTorch versions instead.
+    ``device`` is where the cuda engine runs: None means every CUDA device
+    of this host (an error when there is none); one ``torch.device``, or a
+    list of them, one row chunk of each batch an entry (a device may
+    repeat). ``torch.device("cpu")`` runs the kernels' plain PyTorch
+    versions instead. The device WFA (``--wfa-engine device``) runs on the
+    first of them.
     """
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -219,6 +236,27 @@ def main(argv=None, device: torch.device | None = None) -> int:
     logger.info("hiphase-tpu-torch version %s", full_version())
     check_settings(args)
     LAST_RUN_STATS.clear()
+
+    # multi-host: rank 0 alone runs the writers; each rank resolves its own
+    # engine (all engines give the same bytes)
+    engine = choose_engine(args.engine)
+    multihost = mh.is_multihost()
+    if multihost:
+        if torch.distributed.get_backend() != "gloo":
+            raise SystemExit("a multi-host run needs a gloo process group "
+                             "(hiphase_tpu_torch.parallel.multihost."
+                             "initialize)")
+        # every rank refuses together, so that none waits in a collective
+        # for a rank that has left
+        astar = mh.ranks_where(engine == "astar")
+        if astar:
+            raise SystemExit(
+                f"--engine resolved to the host A* oracle (astar) on rank(s) "
+                f"{astar}, which cannot run as ranks of a multi-host run; "
+                "use --engine cuda or native, or run in a single process")
+        logger.info("Multi-host run: rank %d of %d", mh.host_index(),
+                    mh.host_count())
+    is_writer_host = mh.host_index() == 0
 
     from hiphase_tpu_torch.core.reference_genome import ReferenceGenome
     from hiphase_tpu_torch.io.bam import set_cram_reference
@@ -251,20 +289,18 @@ def main(argv=None, device: torch.device | None = None) -> int:
     wfa_device = wfa_counters = None
     if global_config is not None and global_config.wfa_engine == "device":
         from hiphase_tpu_torch.align.wfa_device import WfaCounters
-        from hiphase_tpu_torch.device import resolve_device
-        wfa_device = resolve_device(device)
+        wfa_device = resolve_devices(device)[0]
         wfa_counters = WfaCounters()
         logger.info("Device WFA on %s", _device_name(wfa_device))
 
-    engine = choose_engine(args.engine)
     solver = None
     if engine == "cuda":
-        from hiphase_tpu_torch.device import resolve_device
         from hiphase_tpu_torch.parallel.orchestrator import BatchedDeviceSolver
-        dev = resolve_device(device)
-        logger.info("Device engine on %s", _device_name(dev))
+        devs = resolve_devices(device)
+        logger.info("Device engine on %s",
+                    ", ".join(_device_name(d) for d in devs))
         solver = BatchedDeviceSolver(
-            dev, beam_width=args.beam_width, batch_size=args.batch_size,
+            devs, beam_width=args.beam_width, batch_size=args.batch_size,
             min_queue_size=args.phase_min_queue_size,
             queue_increment=args.phase_queue_increment,
             compute_estimates=args.stats_file is not None)
@@ -307,21 +343,23 @@ def main(argv=None, device: torch.device | None = None) -> int:
             allow_supplemental_joins=not args.disable_supplemental_joins))
     block_iterator = MultiPhaseBlockIterator(block_iterators)
 
-    # writers (ref: main.rs:153-234)
-    vcf_writer = OrderedVcfWriter(
+    # writers (ref: main.rs:153-234), on the writer host only
+    vcf_writer = None if not is_writer_host else OrderedVcfWriter(
         args.vcfs, args.output_vcfs, args.min_variant_quality, sample_names,
         program_version=full_version(), command_line=command_line,
         csi=args.csi_index, io_threads=args.io_threads)
     bam_writers: dict[str, OrderedBamWriter] = {}
-    for sample_name in sample_names if args.output_bams else []:
+    for sample_name in (sample_names if args.output_bams and is_writer_host
+                        else []):
         bam_writers[sample_name] = OrderedBamWriter(
             sample_name, sample_to_bams[sample_name],
             sample_to_output_bams[sample_name],
             program_version=full_version(), command_line=command_line,
             io_threads=args.io_threads)
-    stats_writer = StatsWriter(args.stats_file) if args.stats_file else None
+    stats_writer = (StatsWriter(args.stats_file)
+                    if args.stats_file and is_writer_host else None)
     haplotag_writer = (HaplotagWriter(args.haplotag_file)
-                       if args.haplotag_file else None)
+                       if args.haplotag_file and is_writer_host else None)
     block_collector = BlockStatsCollector()
 
     max_chrom_len = max((reference_genome.contig_length(c)
@@ -432,23 +470,45 @@ def main(argv=None, device: torch.device | None = None) -> int:
                     with stage_lock:  # float += is not atomic across threads
                         stage_s["prepare"] += dt
 
-            for kind, item in iter_prepared(
-                    windowed(block_iterator), prepare_fn,
-                    lambda b: "solve" if should_solve(b) else "unphased",
-                    threads=args.threads):
-                if kind == "unphased":
-                    emit(*create_unphased_result(item))
-                    continue
-                t0 = time.perf_counter()
-                results = solver.submit(item)
-                stage_s["solve"] += time.perf_counter() - t0
+            # multi-host: every rank walks the same global stream and solves
+            # its round-robin share; the other ranks' blocks pass as 'skip',
+            # so every rank ticks the replay on every block and reaches the
+            # same collectives
+            replay = mh.ResultReplay() if multihost else None
+
+            def classify(block):
+                if not should_solve(block):
+                    return "unphased"
+                return ("solve" if replay is None
+                        or mh.blocks_for_host(block.block_index) else "skip")
+
+            def publish(results):
                 for pr, hr in results:
-                    emit(pr, hr)
+                    if replay is None:
+                        emit(pr, hr)
+                    else:
+                        replay.stash((pr, hr))
+
+            for kind, item in iter_prepared(
+                    windowed(block_iterator), prepare_fn, classify,
+                    threads=args.threads):
+                if kind == "unphased" and is_writer_host:
+                    emit(*create_unphased_result(item))
+                elif kind == "solve":
+                    t0 = time.perf_counter()
+                    results = solver.submit(item)
+                    stage_s["solve"] += time.perf_counter() - t0
+                    publish(results)
+                if replay is not None:
+                    for pr, hr in replay.tick():
+                        emit(pr, hr)
             t0 = time.perf_counter()
             results = solver.drain()
             stage_s["solve"] += time.perf_counter() - t0
-            for pr, hr in results:
-                emit(pr, hr)
+            publish(results)
+            if replay is not None:
+                for pr, hr in replay.finish():
+                    emit(pr, hr)
         elif args.threads > 1:
             _astar_pool(args, reference_genome, sample_to_bams, global_config,
                         windowed(block_iterator), should_solve, emit)
@@ -472,8 +532,10 @@ def main(argv=None, device: torch.device | None = None) -> int:
     if writer_errors:
         raise writer_errors[0]
 
-    # finalization (ref: main.rs:464-570)
-    if not debug_run:
+    # finalization (ref: main.rs:464-570); only the writer host owns files
+    if not is_writer_host:
+        pass
+    elif not debug_run:
         vcf_writer.write_to_end_position()
         vcf_writer.close()
         vcf_writer.write_indexes()
@@ -510,6 +572,7 @@ def main(argv=None, device: torch.device | None = None) -> int:
     if engine == "cuda":
         LAST_RUN_STATS.update(
             device=_device_name(solver.device),
+            devices=[_device_name(d) for d in solver.devices],
             device_batches=solver.device_batches,
             device_transfers=solver.device_transfers,
             transfers_per_batch=(round(solver.device_transfers

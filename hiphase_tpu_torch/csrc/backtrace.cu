@@ -327,24 +327,15 @@ HP_EXPORT int hp_backtrace(const int* slot, const short* parents, const signed c
            static_cast<long long>(stages) * (16 + static_cast<long long>(cols) * col_bytes) ||
        (reinterpret_cast<uintptr_t>(parents) & 15) != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  int prev = -1;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
-    return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (branch == 1) {
-    const StreamParams p{slot, parents, choices, skip, T, B, W, slot_out, h1, h2, stages,
-                         col_bytes};
-    err = dispatch_stream(cols, p, smem, s);
-  } else {
+  return static_cast<int>(on_device(device, [&] {
+    if (branch == 1) {
+      const StreamParams p{slot, parents, choices, skip, T, B, W, slot_out, h1, h2, stages,
+                           col_bytes};
+      return dispatch_stream(cols, p, smem, s);
+    }
     backtrace_direct_kernel<<<(B + kDirectThreads - 1) / kDirectThreads, kDirectThreads, 0, s>>>(
         slot, parents, choices, skip, T, B, W, slot_out, h1, h2);
-    err = cudaGetLastError();
-  }
-  if (prev != device) {
-    const cudaError_t restore = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = restore;
-  }
-  return static_cast<int>(err);
+    return cudaGetLastError();
+  }));
 }

@@ -69,6 +69,7 @@ constexpr int kRows = 4;    // δ rows a warp reads at once
 constexpr int kChunk = 64;  // keys a warp sorts in registers (two a lane)
 constexpr int kCopyBatch = 4;  // remote keys a thread copies at once
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;  // device ordinals the launch records cover
 
 struct Params {
   const int* delta;
@@ -466,19 +467,20 @@ __global__ void __launch_bounds__(kMaxThreads, 1) beam_select_kernel(const Param
 }
 
 template <int C, bool kVec>
-cudaError_t launch(const Params& p, int threads, size_t smem, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int device, int threads, size_t smem, cudaStream_t stream) {
   void (*fn)(Params) = beam_select_kernel<C, kVec>;
-  // per instantiation: the shared memory opted into, and the last
-  // configuration whose cluster placement was checked
-  static size_t opted = 0;
-  static int checked_threads = 0;
-  static size_t checked_smem = 0;
+  // per instantiation and device (cudaFuncSetAttribute holds per device):
+  // the shared memory opted into, and the last configuration whose cluster
+  // placement was checked
+  static size_t opted[kMaxDevices] = {};
+  static int checked_threads[kMaxDevices] = {};
+  static size_t checked_smem[kMaxDevices] = {};
   cudaError_t err;
-  if (smem > opted) {
+  if (smem > opted[device]) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    opted = smem;
+    opted[device] = smem;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(p.B * C));
@@ -492,14 +494,14 @@ cudaError_t launch(const Params& p, int threads, size_t smem, cudaStream_t strea
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (threads != checked_threads || smem != checked_smem) {
+  if (threads != checked_threads[device] || smem != checked_smem[device]) {
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
     if (err != cudaSuccess) return err;
     // the card cannot place one cluster of this shape
     if (clusters < 1) return cudaErrorLaunchOutOfResources;
-    checked_threads = threads;
-    checked_smem = smem;
+    checked_threads[device] = threads;
+    checked_smem[device] = smem;
   }
   err = cudaLaunchKernelEx(&cfg, fn, p);
   if (err != cudaSuccess) {
@@ -510,13 +512,13 @@ cudaError_t launch(const Params& p, int threads, size_t smem, cudaStream_t strea
 }
 
 template <bool kVec>
-cudaError_t dispatch(int cluster, const Params& p, int threads, size_t smem,
+cudaError_t dispatch(int cluster, const Params& p, int device, int threads, size_t smem,
                      cudaStream_t stream) {
   switch (cluster) {
-    case 1: return launch<1, kVec>(p, threads, smem, stream);
-    case 2: return launch<2, kVec>(p, threads, smem, stream);
-    case 4: return launch<4, kVec>(p, threads, smem, stream);
-    case 8: return launch<8, kVec>(p, threads, smem, stream);
+    case 1: return launch<1, kVec>(p, device, threads, smem, stream);
+    case 2: return launch<2, kVec>(p, device, threads, smem, stream);
+    case 4: return launch<4, kVec>(p, device, threads, smem, stream);
+    case 8: return launch<8, kVec>(p, device, threads, smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -530,8 +532,7 @@ HP_EXPORT int hp_beam_select(const int* delta, int* cost, int* hets, unsigned ch
                              int big, int cluster, int threads, int sample, int smem,
                              short* parents, signed char* choices, int* pruned, int* dmin,
                              int* sgn, int* e0, int* rn, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (cluster < 1 || W % cluster != 0 || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || sample < 1 || (sample & (sample - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -547,6 +548,8 @@ HP_EXPORT int hp_beam_select(const int* delta, int* cost, int* hets, unsigned ch
                  col,    order_bits, hets_cap,     big,         npow2,    sample};
   const bool vec = R % 4 == 0 && (reinterpret_cast<uintptr_t>(delta) & 15) == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(vec ? dispatch<true>(cluster, p, threads, smem, s)
-                              : dispatch<false>(cluster, p, threads, smem, s));
+  return static_cast<int>(on_device(device, [&] {
+    return vec ? dispatch<true>(cluster, p, device, threads, smem, s)
+               : dispatch<false>(cluster, p, device, threads, smem, s);
+  }));
 }

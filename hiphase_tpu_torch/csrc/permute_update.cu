@@ -71,8 +71,6 @@ __global__ void __launch_bounds__(kThreads) permute_update_kernel(
 HP_EXPORT int hp_permute_update(const int* delta, const short* idx, const int* sgn,
                                 const int* e0, const int* rn, int* out, int B, int W, int R,
                                 int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const bool aligned = ((reinterpret_cast<uintptr_t>(delta) | reinterpret_cast<uintptr_t>(e0) |
                          reinterpret_cast<uintptr_t>(rn) | reinterpret_cast<uintptr_t>(out)) &
                         15) == 0;
@@ -81,12 +79,14 @@ HP_EXPORT int hp_permute_update(const int* delta, const short* idx, const int* s
   const int rows_per_block = std::max(1, kItemsPerBlock / std::max(per_row, 1));
   const dim3 grid((W + rows_per_block - 1) / rows_per_block, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    permute_update_kernel<true><<<grid, kThreads, 0, s>>>(delta, idx, sgn, e0, rn, out, W, R,
-                                                          rows_per_block);
-  } else {
-    permute_update_kernel<false><<<grid, kThreads, 0, s>>>(delta, idx, sgn, e0, rn, out, W, R,
-                                                           rows_per_block);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(on_device(device, [&] {
+    if (vec) {
+      permute_update_kernel<true><<<grid, kThreads, 0, s>>>(delta, idx, sgn, e0, rn, out, W, R,
+                                                            rows_per_block);
+    } else {
+      permute_update_kernel<false><<<grid, kThreads, 0, s>>>(delta, idx, sgn, e0, rn, out, W,
+                                                             R, rows_per_block);
+    }
+    return cudaGetLastError();
+  }));
 }

@@ -492,12 +492,12 @@ __global__ void __launch_bounds__(32 * NW) wfa_kernel(Args a) {
 }
 
 template <int NW, int C>
-int launch(const Args& a, int smem, cudaStream_t stream) {
+cudaError_t launch(const Args& a, int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(wfa_kernel<NW, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   wfa_kernel<NW, C><<<a.B, 32 * NW, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -517,8 +517,6 @@ HP_EXPORT int hp_wfa_forward_backward(const int* pos, const int* par_idx, const 
                                       int* cols_out, int* endcols, unsigned char* mark_end,
                                       int* score, unsigned char* in_band, unsigned char* trav,
                                       int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || P <= 0 || H < 0 || read_smem < 16 || read_smem % 16 != 0 ||
       32 * warps * cells < 2 * H + 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -526,10 +524,12 @@ HP_EXPORT int hp_wfa_forward_backward(const int* pos, const int* par_idx, const 
                read_smem, cols_in, cols_out, endcols, mark_end, score, in_band, trav};
   const int smem = 2 * kChunk * static_cast<int>(sizeof(int2)) + read_smem;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (warps * 100 + cells) {
-    case 103: return launch<1, 3>(a, smem, s);
-    case 403: return launch<4, 3>(a, smem, s);
-    case 409: return launch<4, 9>(a, smem, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(on_device(device, [&] {
+    switch (warps * 100 + cells) {
+      case 103: return launch<1, 3>(a, smem, s);
+      case 403: return launch<4, 3>(a, smem, s);
+      case 409: return launch<4, 9>(a, smem, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }));
 }

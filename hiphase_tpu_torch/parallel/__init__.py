@@ -1,1 +1,2 @@
-"""Batched device orchestration and engine selection."""
+"""Batched device orchestration over the devices of a host and the
+processes of a run, and engine selection."""

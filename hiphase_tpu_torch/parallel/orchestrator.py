@@ -1,22 +1,23 @@
-"""Batched device solver on one torch device — the counterpart of
-``hiphase_tpu/parallel/orchestrator.py``.
+"""Batched device solver over the torch devices of one host — the
+counterpart of ``hiphase_tpu/parallel/orchestrator.py``.
 
 Prepared blocks are bucketed by slot count and padded into fixed batches.
-Each batch crosses to the device in exactly two host→device copies (packed
-inputs and the skip mask); the beam state is created on the device; the
-tile chain, the backtrace and the stats packing are enqueued on the
-device's current stream without waiting, and up to ``PIPELINE_DEPTH``
-batches stay in flight while the host prepares more. A batch materializes
-with two device→host copies (stats, haplotypes). Blocks not provably
-optimal at the fast width re-solve at the full width.
-
-This slice runs one device; the multi-device branch of the JAX solver is
-not ported yet.
+A batch is split into one contiguous row chunk per device
+(`parallel.sharding.dispatch_chunks`, as the JAX solver's ``P("data")``
+mesh splits it); each chunk crosses to its device in exactly two
+host→device copies (packed inputs and the skip mask); the beam state is
+created on the device; the tile chain, the backtrace and the stats packing
+are enqueued on the device's current stream without waiting, and up to
+``PIPELINE_DEPTH`` batches stay in flight while the host prepares more. A
+batch materializes with two device→host copies a chunk (stats,
+haplotypes), joined in row order. Blocks not provably optimal at the fast
+width re-solve at the full width.
 """
 
 from __future__ import annotations
 
 from collections import deque
+from collections.abc import Sequence
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -28,10 +29,11 @@ from hiphase_tpu_torch.phasing.phaser import (
     AMB, BlockData, beam_phase_stats, finalize_block,
 )
 from hiphase_tpu_torch.writers.phase_stats import PhaseStats
+from hiphase_tpu_torch.parallel.sharding import (
+    Chunk, dispatch_chunks, gather_chunks,
+)
 from hiphase_tpu_torch.phasing.beam import (
-    PACK_PAD, assign_slots, beam_init_device, fetch_haplotypes, max_hets_for,
-    pack_inputs, pack_job_stats, tensorize_block, tiles_backtrace_packed,
-    tiles_forward_packed, unpack_job_stats,
+    PACK_PAD, assign_slots, max_hets_for, pack_inputs, tensorize_block,
 )
 
 # slot-bucket ladder (padded concurrent-read capacities); beyond it the
@@ -88,24 +90,26 @@ class _Pending:
 
 @dataclass
 class _Job:
-    """One dispatched device batch; its tensors are still being computed."""
+    """One dispatched device batch; its chunks are still being computed."""
 
     pending: list[_Pending]
     width: int
-    stats: torch.Tensor         # [2 + 2Vp, B] int32 (pack_job_stats)
-    haps: torch.Tensor          # [2Vp, B] uint8 (h1 rows, then h2 rows)
+    chunks: list[Chunk]         # one a device, in row order
     escalated: bool = False
 
 
 class BatchedDeviceSolver:
     """Buckets prepared blocks into fixed-shape padded batches and solves
-    them on ``device``; results flow back through a bounded pipeline."""
+    them on ``device`` (one torch device, or a list: one row chunk of each
+    batch a device); results flow back through a bounded pipeline."""
 
-    def __init__(self, device: torch.device, beam_width: int | None = None,
-                 batch_size: int = 32, min_queue_size: int = 1000,
-                 queue_increment: int = 3, tile: int = TILE,
-                 compute_estimates: bool = False):
-        self.device = device
+    def __init__(self, device: torch.device | Sequence[torch.device],
+                 beam_width: int | None = None, batch_size: int = 32,
+                 min_queue_size: int = 1000, queue_increment: int = 3,
+                 tile: int = TILE, compute_estimates: bool = False):
+        self.devices = ((device,) if isinstance(device, torch.device)
+                        else tuple(device))
+        self.device = self.devices[0]
         self.compute_estimates = compute_estimates
         # default: solve once at the full queue-size width; an explicit
         # smaller beam_width enables the fast-then-escalate schedule
@@ -124,7 +128,11 @@ class BatchedDeviceSolver:
         self.device_transfers = 0
 
     def _batch_size_for(self, rb: int) -> int:
-        return min(BUCKET_BATCH[rb], self.batch_cap)
+        b = min(BUCKET_BATCH[rb], self.batch_cap)
+        n = len(self.devices)
+        if n > 1:
+            b = max(((b + n - 1) // n) * n, n)
+        return b
 
     def submit(self, data: BlockData):
         """Queue one prepared block; returns finalized results whose device
@@ -153,20 +161,12 @@ class BatchedDeviceSolver:
             out.extend(self._materialize(self._jobs.popleft()))
         return out
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        """One host→device copy. On CUDA it is asynchronous from pinned
-        memory; the caching host allocator keeps the pinned block from
-        being reused until the copy that reads it has completed."""
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def _dispatch(self, pending: list[_Pending], rb: int, width: int,
                   escalated: bool = False) -> None:
-        """Pad a bucket to its batch size and enqueue the whole batch on the
-        device: two host→device copies, then the tile chain, the backtrace
-        and the stats packing, none of which waits for the device."""
+        """Pad a bucket to its batch size and enqueue the whole batch, one
+        row chunk a device: two host→device copies a chunk, then the tile
+        chain, the backtrace and the stats packing, none of which waits for
+        a device."""
         B = self._batch_size_for(rb)
         assert len(pending) <= B
         vp = max(p.packed.shape[1] for p in pending)
@@ -178,22 +178,16 @@ class BatchedDeviceSolver:
             v = p.packed.shape[1]
             PK[i, :, :v] = p.packed
             S[i, :v] = p.skip
-        packed_d = self._to_device(PK)
-        skip_d = self._to_device(S)
+        chunks = dispatch_chunks(self.devices, PK, S, width, self.tile)
         self.device_batches += 1
-        self.device_transfers += 2
-        state = beam_init_device(B, rb, width, self.device)
-        state, traces = tiles_forward_packed(state, packed_d, skip_d, width,
-                                             self.tile)
-        self._jobs.append(_Job(pending, width, pack_job_stats(state, traces),
-                               tiles_backtrace_packed(traces, skip_d), escalated))
+        self.device_transfers += 2 * len(chunks)
+        self._jobs.append(_Job(pending, width, chunks, escalated))
 
     def _materialize(self, job: _Job):
         """Wait for a dispatched batch (one stats and one haplotype copy to
-        the host) and finalize it; blocks that aren't provably optimal at
-        the fast width re-enter at the full width."""
-        cost, _hets, pruned = unpack_job_stats(job.stats.cpu().numpy())
-        h1a, h2a = fetch_haplotypes(job.haps)
+        the host a chunk) and finalize it; blocks that aren't provably
+        optimal at the fast width re-enter at the full width."""
+        (cost, _hets, pruned), (h1a, h2a) = gather_chunks(job.chunks)
 
         out = []
         for i, p in enumerate(job.pending):

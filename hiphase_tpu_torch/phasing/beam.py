@@ -460,12 +460,6 @@ def beam_tile_packed(state, packed, skip, beam_width: int):
                                 tile=skip.shape[1])
 
 
-def tiles_backtrace_device(traces, skip_d) -> tuple[np.ndarray, np.ndarray]:
-    """Backtrace a whole batch from its final argmin; one device→host
-    transfer for the haplotypes. Returns (h1, h2) as [B, V] uint8."""
-    return fetch_haplotypes(tiles_backtrace_packed(traces, skip_d))
-
-
 def tiles_backtrace_packed(traces, skip_d) -> torch.Tensor:
     """Device-side backtrace of a batch, packed as [2V, B] uint8 (h1 rows,
     then h2 rows) so it crosses to the host in one transfer."""
@@ -511,34 +505,13 @@ def beam_solve_batch(alleles, quals, skip, beam_width: int = 256,
     Arguments as in ``hiphase_tpu.phasing.beam.beam_solve_batch``:
     alleles [B, R, V] uint8, quals [B, R, V] int32, skip [B, V] bool,
     resets [B, R, V] bool or None, tile columns per tile (None: one tile).
-    Returns (h1, h2, cost, num_hets, pruned).
+    Returns (h1, h2, cost, num_hets, pruned): the sharded solve
+    (`parallel.sharding.solve_blocks_sharded`) over one device.
     """
-    alleles = np.asarray(alleles)
-    quals = np.asarray(quals)
-    skip = np.asarray(skip)
-    B, R, V = alleles.shape
-    resets = (np.zeros((B, R, V), dtype=bool) if resets is None
-              else np.asarray(resets))
-    T = V if tile is None else int(tile)
-    Vp = ((V + T - 1) // T) * T if T > 0 else V
-    if Vp > V:
-        pad = ((0, 0), (0, 0), (0, Vp - V))
-        alleles = np.pad(alleles, pad, constant_values=3)
-        quals = np.pad(quals, pad)
-        resets = np.pad(resets, pad)
-        skip = np.pad(skip, ((0, 0), (0, Vp - V)), constant_values=True)
-    packed = np.pad(pack_inputs(alleles, quals, resets),
-                    ((0, 0), (0, 0), (0, 1)), constant_values=PACK_PAD)
-    packed_d = torch.from_numpy(packed).to(device)
-    skip_d = torch.from_numpy(np.ascontiguousarray(skip, dtype=bool)).to(
-        device)
-    state = beam_init_device(B, R, beam_width, device)
-    state, traces = tiles_forward_packed(state, packed_d, skip_d, beam_width,
-                                         max(T, 1))
-    cost, hets, pruned = unpack_job_stats(
-        pack_job_stats(state, traces).cpu().numpy())
-    h1, h2 = tiles_backtrace_device(traces, skip_d)
-    return h1[:, :V], h2[:, :V], cost, hets, pruned
+    from hiphase_tpu_torch.parallel.sharding import solve_blocks_sharded
+    return solve_blocks_sharded((device,), np.asarray(alleles),
+                                np.asarray(quals), np.asarray(skip),
+                                beam_width, resets, tile)[:5]
 
 
 def solve_blocks(alleles: np.ndarray, quals: np.ndarray, skip: np.ndarray,

@@ -7,10 +7,12 @@ load while it runs. Checked two ways:
 - in a subprocess, because tests/conftest.py imports JAX into the test
   process: import every module of hiphase_tpu_torch and chip_smoke.py, run
   a tiny solve and tiny CLI runs on the CPU (the cuda and native engines
-  in dual mode on the host WFA, astar in local mode, and dual mode with
-  --wfa-engine device), then assert that no JAX module
-  and no module of the JAX package was loaded. The dataset is built in
-  this process beforehand, so the subprocess sees only the port;
+  in dual mode on the host WFA, astar in local mode, dual mode with
+  --wfa-engine device, and the cuda engine over three devices), then
+  assert that no JAX module and no module of the JAX package was loaded.
+  The dataset is built in this process beforehand, so the subprocess sees
+  only the port. The ranks of a two-process multi-host run make the same
+  check;
 - statically: no import statement of any port source or of chip_smoke.py,
   at module level or inside a function, names the JAX package.
 """
@@ -80,6 +82,13 @@ assert cli.main(["--bam", bam, "--vcf", vcf, "--reference", fasta,
                  "--engine", "cuda", "--wfa-engine", "device"],
                 device=torch.device("cpu")) == 0
 assert cli.LAST_RUN_STATS["wfa"]["reads"] > 0
+# the cuda engine over three devices: one row chunk of each batch a device
+assert cli.main(["--bam", bam, "--vcf", vcf, "--reference", fasta,
+                 "--output-vcf", str(out / "chunks.vcf.gz"),
+                 "--engine", "cuda", "--beam-width", "64",
+                 "--batch-size", "4", "--disable-global-realignment"],
+                device=[torch.device("cpu")] * 3) == 0
+assert cli.LAST_RUN_STATS["transfers_per_batch"] == 6.0
 
 jax_modules = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib")))
@@ -102,6 +111,16 @@ def test_port_and_chip_smoke_never_import_jax(tmp_path):
                           cwd=str(REPO), timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "jax [] hiphase_tpu []" in proc.stdout
+
+
+def test_multihost_ranks_never_import_jax(tmp_path):
+    from tests.test_torch_multihost import run_cli_ranks
+    fasta, vcf, bam, _c, _ = build_dataset(tmp_path, seed=3, n_contigs=1,
+                                           contig_len=3000)
+    _out, stats, foreign = run_cli_ranks(tmp_path, (fasta, vcf, bam), 2,
+                                         "cuda")
+    assert [s["engine"] for s in stats] == ["cuda", "cuda"]
+    assert foreign == [[], []]
 
 
 SOURCES = sorted(str(p.relative_to(REPO)) for p in

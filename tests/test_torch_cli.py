@@ -125,14 +125,14 @@ def test_device_error_ends_the_run(tmp_path, monkeypatch):
     """No host fallback around the device engine: a failing device solve
     is raised out of main, not re-solved on another engine."""
     from hiphase_tpu_torch.kernels import KernelLaunchError
-    from hiphase_tpu_torch.parallel import orchestrator
+    from hiphase_tpu_torch.parallel import sharding
 
     def fail(*_args, **_kw):
         raise KernelLaunchError("beam_select: CUDA error 700")
 
     fasta, vcf, bam, _contigs, _ = build_dataset(
         tmp_path, seed=28, n_contigs=1, contig_len=3000)
-    monkeypatch.setattr(orchestrator, "tiles_forward_packed", fail)
+    monkeypatch.setattr(sharding, "tiles_forward_packed", fail)
     with pytest.raises(KernelLaunchError, match="CUDA error 700"):
         cli.main(_argv(fasta, vcf, bam, _outputs(tmp_path, "x"),
                        ["--engine", "cuda"]), device=CPU)

@@ -220,3 +220,82 @@ def test_wfa_ladder_in_memory_sized_groups_matches_one_launch(
     assert launches == split.band_calls == len(groups)
     assert split.pair_launches == len(pairs)
     assert split.max_pairs_per_launch == max(hi - lo for lo, hi in groups)
+
+
+def _every_device(cuda):
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def test_entry_points_restore_the_callers_device(cuda):
+    """beam_select, permute_update (one tile chain), backtrace and the WFA
+    launch on each device and leave the calling thread's current device
+    as they found it: the last device, so that a launch on any other one
+    would have to give it back (on a one-card machine, a launch on the
+    current device)."""
+    import chip_smoke
+    from hiphase_tpu_torch.align import wfa_device as wd
+    devices = _every_device(cuda)
+    last = devices[-1].index
+    packed, skip = _inputs(2, 32, 6, seed=7)
+    graph, reads = chip_smoke.wfa_graph_case(0)
+    _ga, host, kw = chip_smoke.wfa_inputs(graph, reads, CPU)
+    prev = torch.cuda.current_device()
+    try:
+        for dev in devices:
+            torch.cuda.set_device(last)
+            _state, traces = beam.tiles_forward_packed(
+                beam.beam_init_device(2, 32, 64, dev), packed.to(dev),
+                skip.to(dev), 64, tile=6)
+            assert torch.cuda.current_device() == last, ("beam", dev)
+            slot = torch.zeros(2, dtype=torch.int32, device=dev)
+            beam.backtrace_tile(slot, traces[0], traces[1], skip.to(dev))
+            assert torch.cuda.current_device() == last, ("backtrace", dev)
+            wd.wfa_forward_backward(*(t.to(dev) for t in host), H=32, **kw)
+            assert torch.cuda.current_device() == last, ("wfa", dev)
+            torch.cuda.synchronize(dev)
+    finally:
+        torch.cuda.set_device(prev)
+
+
+@pytest.fixture
+def two_cuda(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return _every_device(cuda)
+
+
+def test_beam_select_on_a_second_device_opts_in_there(two_cuda):
+    """A plan above the 48 KB of shared memory that needs no opt-in, on
+    cuda:0 and then on cuda:1: the opt-in is recorded per device, so the
+    second device's launch opts in too and runs; both equal the plain
+    version."""
+    B, R, V, W = 2, 128, 4, 16384
+    assert kernels.beam_select_plan(B, W, R).smem > 48 * 1024
+    packed, skip = _inputs(B, R, V, seed=11)
+    results = []
+    for dev in (CPU, *two_cuda[:2]):
+        state, traces = beam.tiles_forward_packed(
+            beam.beam_init_device(B, R, W, dev), packed.to(dev),
+            skip.to(dev), W, tile=V)
+        results.append([t.cpu() for t in state + traces])
+    for got in results[1:]:
+        for a, b in zip(got, results[0]):
+            assert torch.equal(a, b)
+
+
+def test_sharded_solve_over_every_device_matches_one(two_cuda):
+    from hiphase_tpu_torch.parallel import sharding
+    rng = np.random.default_rng(5)
+    n = len(two_cuda)
+    B, R, V = 4 * n, 128, 40
+    alleles = rng.choice(4, size=(B, R, V), p=[0.4, 0.4, 0.1, 0.1])
+    quals = rng.integers(5, 60, size=(B, R, V)).astype(np.int32)
+    quals[alleles >= 2] = 0
+    skip = rng.random((B, V)) < 0.1
+    got = sharding.solve_blocks_sharded(two_cuda, alleles, quals, skip,
+                                        beam_width=1024, tile=16)
+    want = sharding.solve_blocks_sharded(two_cuda[:1], alleles, quals, skip,
+                                         beam_width=1024, tile=16)
+    for a, b in zip(got[:5], want[:5]):
+        assert np.array_equal(a, b)
+    assert got[5] == want[5]
