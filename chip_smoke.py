@@ -5,7 +5,11 @@ In order, any failure ending the run with a non-zero exit and no ``ok``
 line:
 
   1. the card (nvidia-smi name and power limit), torch / CUDA versions, and
-     whether the native host library loaded;
+     the native host library, which must load: the committed
+     native/libhiphase_native.so, or else the port's own build of
+     hiphase_tpu_torch/csrc/hiphase_native.cc (built here at first use),
+     with its BGZF codec and its build seconds; the compiler's output when
+     it does not;
   2. build every kernel from hiphase_tpu_torch/csrc with nvcc (sm_90a);
   3. hold each beam kernel against its plain PyTorch version on the card,
      with exact integer equality, on seeded inputs: one full tile at
@@ -35,15 +39,14 @@ line:
   4. the golden end-to-end dataset (tests/test_e2e_golden.py's settings,
      dual mode) through ``hiphase_tpu_torch.cli.main(... --engine cuda)``:
      its sha256 must be the committed one;
-  5. the local-mode benchmark configuration (30 Mb, 30x, 15 kb reads,
-     --disable-global-realignment, default widths) with --engine cuda,
-     record-identical to --engine native (astar when the native library
-     does not load), two host→device copies per batch, every beam kernel
-     launched. Without the native host library the genome is cut to
-     BENCH_MB_PURE_PYTHON, and the cut is printed;
+  5. the local-mode benchmark configuration (BENCH_MB Mb, 30x, 15 kb
+     reads, --disable-global-realignment, default widths) with --engine
+     cuda, record-identical to --engine native, two host→device copies per
+     batch, every beam kernel launched; the walls and stage seconds of
+     both;
   5b. the golden dataset in local mode at --phase-min-queue-size 5000
-     (beam width 5056) with --engine cuda, record-identical to the same
-     reference engine, every beam kernel launched;
+     (beam width 5056) with --engine cuda, record-identical to --engine
+     native, every beam kernel launched;
   5c. phaser.solve_block(solver="beam" and "beam-full") over the first
      SOLVE_BLOCKS multi-variant blocks of the golden dataset on the card
      (widths 256 and 1000, unpadded, one block a batch), each result equal
@@ -70,8 +73,14 @@ line:
      cuda:0, each under a timeout. Rank 0's outputs must give the committed
      sha256, rank 1 must write no output file, both ranks must launch
      beam_select (each solves its share of the blocks), and neither may
-     load a module of JAX or of the JAX package.
-Steps 1-7 run on cuda:0 alone. Steps 6 and 7 print the device-WFA run's
+     load a module of JAX or of the JAX package;
+  10. the golden dataset with --engine auto on cuda:0: the rating's two
+     rates (the device engine's and the native beam's, hets/s), its
+     verdict and its cost; the committed sha256, and the engine that ran
+     must be the verdict (the device only past RATE_MARGIN). Whether the
+     verdict is the engine with the smaller solve stage in step 5 is
+     printed, not checked.
+Steps 1-7 and 10 run on cuda:0 alone. Steps 6 and 7 print the device-WFA run's
 wall time, its WFA launches and the pairs each launch carried. Step 7 then
 runs the device-WFA configuration once more under torch.profiler and
 prints its device time by kernel and the device's busy share (the profiler
@@ -102,11 +111,8 @@ TIMING_REPS = 20
 # step 5b's queue size: a beam width of 5056, past the 4096 that one CTA's
 # shared memory held before beam_select ran as a cluster
 WIDE_QUEUE = 5000
-# step 5's genome size: bench.py's 30 Mb, cut when the native host library
-# does not load (block generation, allele assignment and the reference
-# engine then run in pure Python, about 30 s per Mb on an 8-core host)
+# step 5's genome size: bench.py's 30 Mb
 BENCH_MB = 30
-BENCH_MB_PURE_PYTHON = 6
 # step 7's genome size (bench.py's dual-mode runs use the same 30 Mb)
 DUAL_MB = 1
 # step 3b: the band ladder, the seeded graph cases (odd seeds close their
@@ -116,9 +122,10 @@ WFA_GRAPH_SEEDS = (0, 1, 2, 3)
 WFA_BATCH = 256
 BEAM_KERNELS = ("beam_select", "permute_update", "backtrace")
 # step 3c's backtrace launches (B, W, V): one 128-column tile, the dual 1 Mb
-# and local 6 Mb batches at every slot bucket, the wide beams; then the
-# sweep that places the crossover in kernels.backtrace_plan. BACKTRACE_MAIN
-# is the kernel line's shape (the local 6 Mb batch).
+# and the local bench's widest batches (blocks are cut at 1 Mb, 1250 hets)
+# at every slot bucket, the wide beams; then the sweep that places the
+# crossover in kernels.backtrace_plan. BACKTRACE_MAIN is the kernel line's
+# shape (the local bench's widest batch).
 BACKTRACE_SHAPES = ((64, 1024, 128), (64, 1024, 384), (64, 1024, 1280),
                     (16, 1024, 1280), (8, 1024, 1280), (16, 5056, 384),
                     (8, 8192, 384), (4, 32768, 384))
@@ -830,13 +837,13 @@ def wfa_summary(secs: float, stats: dict) -> str:
 
 
 def golden_argv(meta: dict, out: list, wfa_engine: str,
-                threads: int) -> list:
-    """The golden dataset's CLI flags with --engine cuda, writing the VCF,
+                threads: int, engine: str = "cuda") -> list:
+    """The golden dataset's CLI flags with ``engine``, writing the VCF,
     BAM and blocks file ``out``."""
     return ["--bam", meta["bam"], "--vcf", meta["vcf"],
             "--reference", meta["fasta"], "--output-vcf", out[0],
             "--output-bam", out[1], "--blocks-file", out[2],
-            "--engine", "cuda", "--wfa-engine", wfa_engine,
+            "--engine", engine, "--wfa-engine", wfa_engine,
             "--threads", str(threads)]
 
 
@@ -972,12 +979,43 @@ def check_multihost(workdir: str, meta: dict) -> None:
             raise AssertionError(f"rank {r['rank']} launched no beam_select")
 
 
+def check_auto(workdir: str, meta: dict, step5: dict) -> None:
+    """Step 10: the golden dataset with --engine auto on cuda:0. The
+    committed sha256, both rates of the rating, and the engine that ran
+    equal to the rating's verdict."""
+    from hiphase_tpu_torch.parallel.engine_select import RATE_MARGIN
+    out = golden_outputs(workdir, "auto")
+    secs, stats = run_cli(golden_argv(meta, out, "host", 2, engine="auto"))
+    rates = stats["engine_rates"]
+    if set(rates) != {"cuda", "native"}:
+        raise AssertionError(f"--engine auto rated {sorted(rates)}, "
+                             f"expected cuda and native")
+    verdict = ("cuda" if rates["cuda"] > RATE_MARGIN * rates["native"]
+               else "native")
+    log(f"auto: {secs:.2f} s; rates (hets/s) {json.dumps(rates)}, device / "
+        f"native {rates['cuda'] / rates['native']:.3f} (margin "
+        f"{RATE_MARGIN}); verdict {verdict}, ran {stats['engine']}; rating "
+        f"cost {json.dumps(stats['engine_rating'])}")
+    check_golden_digest(out, "--engine auto")
+    if stats["engine"] != verdict:
+        raise AssertionError(f"--engine auto ran {stats['engine']}, the "
+                             f"rating's verdict was {verdict}")
+    solve = {"cuda": step5["stage_seconds"]["solve"],
+             "native": step5["host_stage_seconds"]["solve"]}
+    faster = min(solve, key=solve.get)
+    log(f"auto: step 5's solve stage seconds {json.dumps(solve)}: "
+        f"{faster} was faster there; the verdict "
+        f"{'agrees' if faster == verdict else 'differs'}")
+
+
 def vcf_records(path):
     from hiphase_tpu_torch.io.vcf import VcfReader
     return [r.serialize() for r in VcfReader(path)]
 
 
-def check_local_bench(workdir: str, host_engine: str, total_mb: int) -> dict:
+def check_local_bench(workdir: str, total_mb: int) -> dict:
+    """Step 5: the local bench configuration with --engine cuda against
+    --engine native; returns the summary (walls, stage seconds, launches)."""
     from hiphase_tpu_torch.utils.simulate import build_benchmark_dataset
     from hiphase_tpu_torch import kernels
     t0 = time.perf_counter()
@@ -1001,19 +1039,17 @@ def check_local_bench(workdir: str, host_engine: str, total_mb: int) -> dict:
     cuda_s, stats = run_cli(argv("cuda", 2))   # bench_e2e.py's --threads 2
     launches = kernels.launch_counts()
     # the reference engine's thread count does not change its output
-    host_s, host_stats = run_cli(argv(host_engine,
-                                      min(os.cpu_count() or 2, 8)))
+    host_s, host_stats = run_cli(argv("native", min(os.cpu_count() or 2, 8)))
     same_vcf = (vcf_records(os.path.join(workdir, "bench.cuda.vcf.gz"))
-                == vcf_records(os.path.join(workdir,
-                                            f"bench.{host_engine}.vcf.gz")))
+                == vcf_records(os.path.join(workdir, "bench.native.vcf.gz")))
     with open(os.path.join(workdir, "bench.cuda.tsv")) as a, \
-            open(os.path.join(workdir, f"bench.{host_engine}.tsv")) as b:
+            open(os.path.join(workdir, "bench.native.tsv")) as b:
         same_blocks = a.read() == b.read()
     summary = {
         "total_mb": total_mb, "n_het": meta["n_het"],
         "cuda_seconds": cuda_s, "hets_per_sec": meta["n_het"] / cuda_s,
-        f"{host_engine}_seconds": host_s,
-        f"{host_engine}_hets_per_sec": meta["n_het"] / host_s,
+        "native_seconds": host_s,
+        "native_hets_per_sec": meta["n_het"] / host_s,
         "device_batches": stats.get("device_batches"),
         "transfers_per_batch": stats.get("transfers_per_batch"),
         "kernel_launches": launches,
@@ -1022,20 +1058,20 @@ def check_local_bench(workdir: str, host_engine: str, total_mb: int) -> dict:
         "record_identical": same_vcf and same_blocks}
     log("local bench " + json.dumps(summary))
     if not same_vcf or not same_blocks:
-        raise AssertionError(f"--engine cuda output differs from "
-                             f"--engine {host_engine}")
+        raise AssertionError("--engine cuda output differs from "
+                             "--engine native")
     if stats.get("transfers_per_batch") != 2.0:
         raise AssertionError("expected two host→device copies per batch")
     missing = [k for k in BEAM_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    return launches
+    return summary
 
 
-def check_wide_golden(workdir: str, meta: dict, host_engine: str) -> dict:
+def check_wide_golden(workdir: str, meta: dict) -> dict:
     """Step 5b: the golden dataset in local mode at --phase-min-queue-size
-    WIDE_QUEUE with --engine cuda, record-identical to ``host_engine`` at
+    WIDE_QUEUE with --engine cuda, record-identical to --engine native at
     the same flags; every beam kernel launched."""
     from hiphase_tpu_torch import kernels
 
@@ -1051,22 +1087,21 @@ def check_wide_golden(workdir: str, meta: dict, host_engine: str) -> dict:
     kernels.reset_launch_counts()
     cuda_s, stats = run_cli(argv("cuda", 2))
     launches = kernels.launch_counts()
-    host_s, _ = run_cli(argv(host_engine, min(os.cpu_count() or 2, 8)))
+    host_s, _ = run_cli(argv("native", min(os.cpu_count() or 2, 8)))
     same_vcf = (vcf_records(os.path.join(workdir, "wide.cuda.vcf.gz"))
-                == vcf_records(os.path.join(workdir,
-                                            f"wide.{host_engine}.vcf.gz")))
+                == vcf_records(os.path.join(workdir, "wide.native.vcf.gz")))
     with open(os.path.join(workdir, "wide.cuda.tsv")) as a, \
-            open(os.path.join(workdir, f"wide.{host_engine}.tsv")) as b:
+            open(os.path.join(workdir, "wide.native.tsv")) as b:
         same_blocks = a.read() == b.read()
     log("wide golden " + json.dumps({
         "phase_min_queue_size": WIDE_QUEUE, "cuda_seconds": cuda_s,
-        f"{host_engine}_seconds": host_s,
+        "native_seconds": host_s,
         "device_batches": stats.get("device_batches"),
         "kernel_launches": launches,
         "record_identical": same_vcf and same_blocks}))
     if not same_vcf or not same_blocks:
         raise AssertionError(f"--engine cuda output differs from --engine "
-                             f"{host_engine} at --phase-min-queue-size "
+                             f"native at --phase-min-queue-size "
                              f"{WIDE_QUEUE}")
     missing = [k for k in BEAM_KERNELS if launches[k] <= 0]
     if missing:
@@ -1080,8 +1115,8 @@ def check_solve_block(meta: dict, device) -> dict:
     at the default queue size unpadded ("beam-full", W = 1000), on the
     card, over the first SOLVE_BLOCKS multi-variant blocks of the golden
     dataset; each result must equal the same call on the CPU. Every beam
-    kernel must launch. A block's prepare_block (its pure-Python host
-    half, which reads and does not depend on the solver or the device) runs
+    kernel must launch. A block's prepare_block (its host half, which
+    reads and does not depend on the solver or the device) runs
     once and serves the block's four calls."""
     from unittest import mock
 
@@ -1258,13 +1293,19 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = nvidia_smi()
 
-    # 1. environment
+    # 1. environment; the native host library must load
     from hiphase_tpu_torch.io import native
-    host_engine = "native" if native.available() else "astar"
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
-        f"native host library loaded: {native.available()}")
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    if not native.available():
+        raise AssertionError(f"the native host library did not load: "
+                             f"{native.LOADED.get('error')}")
+    lib = native.LOADED
+    log(f"native host library: {lib['origin']} "
+        f"{os.path.relpath(lib['path'], HERE)}, codec {lib['codec']}, "
+        f"built in {lib['build_seconds']:.2f} s (0 when it was not built "
+        f"in this run)")
 
     # 2. build
     from hiphase_tpu_torch import kernels
@@ -1290,14 +1331,10 @@ def main() -> int:
         # 4. golden dataset
         check_golden(workdir, golden_meta, "host")
         # 5. the local-mode benchmark configuration
-        total_mb = BENCH_MB if native.available() else BENCH_MB_PURE_PYTHON
-        if total_mb != BENCH_MB:
-            log(f"local bench cut: total_mb {BENCH_MB} -> {total_mb}, "
-                f"because the native host library did not load and the "
-                f"host path runs in pure Python")
-        launches = check_local_bench(workdir, host_engine, total_mb)
+        step5 = check_local_bench(workdir, BENCH_MB)
+        launches = dict(step5["kernel_launches"])
         # 5b. the widths that one CTA's shared memory did not hold
-        check_wide_golden(workdir, golden_meta, host_engine)
+        check_wide_golden(workdir, golden_meta)
         # 5c. the single-block path at unpadded widths
         check_solve_block(golden_meta, device)
         # 6. golden dataset, dual mode on the device WFA; four prepare
@@ -1306,13 +1343,14 @@ def main() -> int:
         step6 = check_golden(workdir, golden_meta, "device", threads=4)
         # 7. the dual-mode benchmark configuration
         log(f"dual bench cut: total_mb 30 -> {DUAL_MB}, to keep the script "
-            f"inside its time limit (host paths in pure Python: "
-            f"{not native.available()})")
+            f"inside its time limit")
         launches["wfa_forward_backward"] = check_dual_bench(
             workdir, DUAL_MB)["wfa_forward_backward"]
         # 8. step 6 over several devices (row chunks); 9. as two ranks
         check_multi_device(workdir, golden_meta, step6)
         check_multihost(workdir, golden_meta)
+        # 10. --engine auto, rated against the native beam
+        check_auto(workdir, golden_meta, step5)
 
     table = [{"name": name, "route": "cuda",
               "source": os.path.relpath(k.source, HERE),

@@ -16,12 +16,14 @@ with the same behaviour. What runs on the card is this package's:
   parallel/sharding.py     a batch split into one row chunk per device
   parallel/multihost.py    several processes (a gloo group): sharded block
                            stream, results replayed to rank 0
-  parallel/engine_select.py  --engine auto resolution
+  parallel/engine_select.py  --engine auto: the device rated against the host
   phasing/native_beam.py   the native C++ beam engine behind the solver interface
   cli.py                   ``python -m hiphase_tpu_torch.cli --engine cuda``
 
-The C++ host library (``native/libhiphase_native.so``) is loaded by path
-through ``io/native.py``; without it the host layers run in pure Python.
+The C++ host library is loaded through ``io/native.py``: the committed
+``native/libhiphase_native.so``, else the port's own build of
+``csrc/hiphase_native.cc`` (``kernels/build.py``, at first use); without
+either the host layers run in pure Python.
 """
 
 from hiphase_tpu_torch.version import __version__

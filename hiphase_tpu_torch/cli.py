@@ -20,8 +20,9 @@ its own engine.
 Differences from ``hiphase_tpu.cli``, all deliberate:
   * the device engine is not wrapped in a host fallback: a device or kernel
     error ends the run with that error;
-  * ``--engine auto`` resolves before the run from what the machine has
-    (see `parallel.engine_select`) and never switches mid-run;
+  * ``--engine auto`` resolves before the run, by rating the device
+    engine against the host engine on a seeded batch when there is a
+    device (see `parallel.engine_select`), and never switches mid-run;
   * ``--wfa-engine device`` aligns dual-mode reads on the CUDA kernel (or,
     with ``device=torch.device("cpu")``, its plain version) whatever the
     engine; with ``--engine astar`` it prepares blocks on threads of this
@@ -48,7 +49,8 @@ import torch
 from hiphase_tpu_torch import kernels
 from hiphase_tpu_torch.device import resolve_devices
 from hiphase_tpu_torch.parallel import multihost as mh
-from hiphase_tpu_torch.parallel.engine_select import ENGINES, choose_engine
+from hiphase_tpu_torch.parallel.engine_select import (
+    ENGINES, RATE_MARGIN, choose_engine)
 from hiphase_tpu_torch.version import full_version
 
 logger = logging.getLogger("hiphase_tpu_torch")
@@ -101,8 +103,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Phasing engine: 'cuda' = batched device beam engine "
                         "on the CUDA kernels; 'native' = C++ host beam "
                         "engine; 'astar' = host A* oracle; 'auto' (default) "
-                        "= cuda when a CUDA device is present, else native, "
-                        "else astar. All engines produce identical output.")
+                        "= with a CUDA device, cuda when its rate measured "
+                        "on a seeded batch beats the host engine's by "
+                        f"{RATE_MARGIN}x, "
+                        "else the host engine: native when its library "
+                        "loads, else astar. All engines produce identical "
+                        "output.")
     p.add_argument("--beam-width", type=int, default=None,
                    help="TPU engine fast beam width; blocks not provably "
                         "optimal at this width re-solve at the full "
@@ -238,8 +244,15 @@ def main(argv=None, device: torch.device | Sequence | None = None) -> int:
     LAST_RUN_STATS.clear()
 
     # multi-host: rank 0 alone runs the writers; each rank resolves its own
-    # engine (all engines give the same bytes)
-    engine = choose_engine(args.engine)
+    # engine (all engines give the same bytes); 'auto' rates the devices
+    # the cuda engine would run on, when there are any
+    devices = (resolve_devices(device)
+               if device is not None or torch.cuda.is_available() else None)
+    choice = choose_engine(
+        args.engine, devices, args.threads, beam_width=args.beam_width,
+        batch_size=args.batch_size, min_queue_size=args.phase_min_queue_size,
+        queue_increment=args.phase_queue_increment)
+    engine = choice.engine
     multihost = mh.is_multihost()
     if multihost:
         if torch.distributed.get_backend() != "gloo":
@@ -296,7 +309,7 @@ def main(argv=None, device: torch.device | Sequence | None = None) -> int:
     solver = None
     if engine == "cuda":
         from hiphase_tpu_torch.parallel.orchestrator import BatchedDeviceSolver
-        devs = resolve_devices(device)
+        devs = devices if devices is not None else resolve_devices(device)
         logger.info("Device engine on %s",
                     ", ".join(_device_name(d) for d in devs))
         solver = BatchedDeviceSolver(
@@ -564,8 +577,13 @@ def main(argv=None, device: torch.device | Sequence | None = None) -> int:
     elapsed = time.time() - start_time
     logger.info("Phasing complete: %d blocks, %d variants in %.2fs",
                 results_received, total_variants, elapsed)
-    LAST_RUN_STATS.update(engine=engine, blocks=results_received,
-                          variants=total_variants, phasing_seconds=elapsed)
+    LAST_RUN_STATS.update(engine=engine, engine_rates=choice.rates,
+                          blocks=results_received, variants=total_variants,
+                          phasing_seconds=elapsed)
+    if choice.rates:
+        LAST_RUN_STATS["engine_rating"] = {
+            "seconds": choice.seconds,
+            "kernel_build_seconds": choice.build_seconds}
     if engine == "native":
         LAST_RUN_STATS.update(node_expansions=solver.total_expansions,
                               solve_seconds=solver.solve_seconds)

@@ -1,66 +1,117 @@
-"""ctypes bindings for the native host library (native/hiphase_native.cc).
+"""ctypes bindings for the native host library.
 
-Loads ``libhiphase_native.so`` when built (``make -C native``); all callers
-fall back to the pure-Python implementations when absent, so the framework
-works without a compile step and the native path is a transparent speedup.
+Two libraries, in this order: the committed ``native/libhiphase_native.so``
+(built from ``native/hiphase_native.cc``; it links libdeflate), then the
+port's own build of ``hiphase_tpu_torch/csrc/hiphase_native.cc``, which
+`kernels.build.build_host_library` compiles with the system C++ compiler
+at first use into ``hiphase_tpu_torch/build/`` (libdeflate, else zlib, else
+no BGZF codec). When neither loads (no compiler, or it refused the source),
+the compiler's error is logged once as a warning and every caller falls
+back to its pure-Python implementation. ``HIPHASE_TPU_NO_NATIVE`` disables
+both libraries.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
+import threading
 
 import numpy as np
 
+logger = logging.getLogger(__name__)
+
 _LIB = None
 _TRIED = False
+_LOAD_LOCK = threading.Lock()
+# what `_load` found: origin ("committed" or "built"), path, codec, the
+# build's seconds, or the error that left the host layer in pure Python
+LOADED: dict = {}
 
 
 def _ptr(arr: np.ndarray) -> ctypes.c_void_p:
     return ctypes.c_void_p(arr.ctypes.data)
 
-_SO_PATHS = [
-    os.path.join(os.path.dirname(__file__), "..", "..", "native",
-                 "libhiphase_native.so"),
-    os.path.join(os.path.dirname(__file__), "libhiphase_native.so"),
-]
+
+COMMITTED_PATH = os.path.abspath(os.path.join(
+    os.path.dirname(__file__), "..", "..", "native", "libhiphase_native.so"))
+
+
+def bind(path) -> ctypes.CDLL:
+    """Load the library at ``path`` and declare the signatures that every
+    caller shares; raises OSError when it does not load."""
+    lib = ctypes.CDLL(str(path))
+    lib.hn_bgzf_compress_many.restype = ctypes.c_int64
+    lib.hn_bgzf_compress_many.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int]
+    lib.hn_bgzf_decompress_many.restype = ctypes.c_int32
+    lib.hn_bgzf_decompress_many.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    lib.hn_bgzf_scan.restype = ctypes.c_int64
+    lib.hn_bgzf_scan.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64]
+    lib.hn_edit_distance_batch.restype = None
+    lib.hn_edit_distance_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_void_p, ctypes.c_int]
+    return lib
+
+
+def codec_of(lib) -> str:
+    """The BGZF codec a bound library was built with. The committed
+    library predates ``hn_codec`` and links libdeflate."""
+    from hiphase_tpu_torch.kernels.build import CODEC_NAMES
+    if not hasattr(lib, "hn_codec"):
+        return "libdeflate"
+    lib.hn_codec.restype = ctypes.c_int32
+    lib.hn_codec.argtypes = []
+    return CODEC_NAMES[lib.hn_codec()]
 
 
 def _load():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
-    _TRIED = True
-    if os.environ.get("HIPHASE_TPU_NO_NATIVE"):
-        return None
-    for path in _SO_PATHS:
-        path = os.path.abspath(path)
-        if os.path.exists(path):
-            try:
-                lib = ctypes.CDLL(path)
-            except OSError:
-                continue
-            lib.hn_bgzf_compress_many.restype = ctypes.c_int64
-            lib.hn_bgzf_compress_many.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_void_p, ctypes.c_int]
-            lib.hn_bgzf_decompress_many.restype = ctypes.c_int32
-            lib.hn_bgzf_decompress_many.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-            lib.hn_bgzf_scan.restype = ctypes.c_int64
-            lib.hn_bgzf_scan.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int64]
-            lib.hn_edit_distance_batch.restype = None
-            lib.hn_edit_distance_batch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_void_p, ctypes.c_int]
-            _LIB = lib
-            break
+    with _LOAD_LOCK:
+        if not _TRIED:
+            _LIB = _find_library()
+            _TRIED = True
     return _LIB
+
+
+def _find_library():
+    if os.environ.get("HIPHASE_TPU_NO_NATIVE"):
+        LOADED.update(origin=None, error="HIPHASE_TPU_NO_NATIVE is set")
+        return None
+    if os.path.exists(COMMITTED_PATH):
+        try:
+            lib = bind(COMMITTED_PATH)
+        except OSError as e:
+            logger.debug("%s does not load (%s); building the port's own "
+                         "native host library", COMMITTED_PATH, e)
+        else:
+            LOADED.update(origin="committed", path=COMMITTED_PATH,
+                          codec=codec_of(lib), build_seconds=0.0)
+            return lib
+    from hiphase_tpu_torch.kernels.build import (
+        KernelBuildError, build_host_library)
+    try:
+        built = build_host_library()
+        lib = bind(built.library)
+    except (KernelBuildError, OSError) as e:
+        logger.warning("The native host library is not available; the host "
+                       "layer runs in pure Python. %s", e)
+        LOADED.update(origin=None, error=str(e))
+        return None
+    LOADED.update(origin="built", path=str(built.library),
+                  codec=codec_of(lib), build_seconds=built.seconds)
+    return lib
 
 
 def available() -> bool:

@@ -1,17 +1,26 @@
-"""Build the CUDA sources with nvcc into shared libraries with a C ABI.
+"""Build the CUDA sources with nvcc, and the native host library with the
+system C++ compiler, into shared libraries with a C ABI.
 
 Each ``csrc/<name>.cu`` becomes ``build/lib<name>_<hash>.so`` under the
 package (the directory is git-ignored); the hash covers the source, the
 shared header and the flags, so an edited source rebuilds and an unchanged
 one is reused. Builds of several sources run as concurrent nvcc processes.
+``csrc/hiphase_native.cc`` (the host library: BGZF, BAM and VCF scans,
+allele assignment, the C++ beam) becomes
+``build/libhiphase_native_<hash>.so`` the same way (`build_host_library`).
+Every library is written under a temporary name and renamed into place, so
+concurrent processes never load a half-written file.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import threading
+import time
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -20,10 +29,19 @@ BUILD_DIR = CSRC.parent / "build"
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_SOURCE = CSRC / "hiphase_native.cc"
+# no -march=native: the hash does not cover the host CPU, so a library
+# cached on one CPU may be loaded on another
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
+# the host library's BGZF codecs: HN_CODEC's value (hn_codec() returns it)
+# and the link flags each needs, best first
+CODECS = {"libdeflate": (2, ("-ldeflate",)), "zlib": (1, ("-lz",)),
+          "none": (0, ())}
+CODEC_NAMES = {v: k for k, (v, _) in CODECS.items()}
 
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused a source."""
+    """A compiler is missing or refused a source."""
 
 
 @dataclass
@@ -82,3 +100,79 @@ def build(names: list[str]) -> dict[str, BuiltKernel]:
     if failures:
         raise KernelBuildError("\n".join(failures))
     return out
+
+
+@dataclass
+class BuiltHostLibrary:
+    library: Path
+    codec: str       # a key of CODECS
+    seconds: float   # the compiler's wall time; 0.0 when the cache held it
+
+
+def cxx() -> str:
+    """The system C++ compiler: g++ on PATH, else c++."""
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise KernelBuildError("no C++ compiler (g++ or c++) on PATH; the native "
+                           "host library is compiled from csrc/ at first use")
+
+
+def host_flags(codec: str) -> tuple[str, ...]:
+    value, libs = CODECS[codec]
+    return (*HOST_FLAGS, f"-DHN_CODEC={value}", *libs)
+
+
+def host_library_path(codec: str) -> Path:
+    h = hashlib.sha256(HOST_SOURCE.read_bytes())
+    h.update(" ".join(host_flags(codec)).encode())
+    return BUILD_DIR / f"libhiphase_native_{h.hexdigest()[:16]}.so"
+
+
+def header_codec(compiler: str) -> str:
+    """The codec the source picks by itself (``__has_include``) with this
+    compiler: the value it gives HN_CODEC when none is passed."""
+    proc = subprocess.run([compiler, "-std=c++17", "-E", "-dM",
+                           str(HOST_SOURCE)], capture_output=True, text=True)
+    m = re.search(r"^#define HN_CODEC (\d+)$", proc.stdout, re.M)
+    if proc.returncode != 0 or m is None:
+        raise KernelBuildError(f"{compiler} could not preprocess "
+                               f"{HOST_SOURCE.name}:\n{proc.stderr}")
+    return CODEC_NAMES[int(m.group(1))]
+
+
+def build_host_library(codec: str = "auto") -> BuiltHostLibrary:
+    """Build (or find in the cache) the native host library with ``codec``
+    (a key of CODECS). ``auto`` takes the codec whose header the compiler
+    finds, and the next one down when it does not link (a header without
+    its library); ``none`` always builds."""
+    compiler = cxx()
+    if codec == "auto":
+        order = list(CODECS)
+        codecs = order[order.index(header_codec(compiler)):]
+    else:
+        codecs = [codec]
+    failures = []
+    for c in codecs:
+        lib = host_library_path(c)
+        if lib.exists():
+            return BuiltHostLibrary(lib, c, 0.0)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(
+            f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+        value, libs = CODECS[c]
+        cmd = [compiler, *HOST_FLAGS, f"-DHN_CODEC={value}", "-o", str(tmp),
+               str(HOST_SOURCE), *libs]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode == 0:
+            os.replace(tmp, lib)
+            return BuiltHostLibrary(lib, c, seconds)
+        tmp.unlink(missing_ok=True)
+        failures.append(f"codec {c}: {' '.join(cmd)}\nexited "
+                        f"{proc.returncode}\n{proc.stdout}")
+    raise KernelBuildError("the native host library did not build:\n"
+                           + "\n".join(failures))

@@ -139,14 +139,33 @@ def test_device_error_ends_the_run(tmp_path, monkeypatch):
 
 
 def test_auto_without_cuda_resolves_to_a_host_engine(tmp_path, monkeypatch):
+    """No CUDA device and none given: choose_engine gets no devices and
+    rates nothing."""
     from hiphase_tpu_torch.io import native
+    from hiphase_tpu_torch.parallel import engine_select
     fasta, vcf, bam, _contigs, _ = build_dataset(
         tmp_path, seed=26, n_contigs=1, contig_len=3000)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    choose = engine_select.choose_engine
+
+    def spy(requested, devices=None, threads=1, **solver_kw):
+        calls.append((requested, devices, threads, solver_kw))
+        return choose(requested, devices, threads, **solver_kw)
+
+    def rated(*_a, **_kw):
+        raise AssertionError("rated without a device")
+    monkeypatch.setattr(cli, "choose_engine", spy)
+    monkeypatch.setattr(engine_select, "measure_rates", rated)
     assert cli.main(_argv(fasta, vcf, bam, _outputs(tmp_path, "auto"),
-                          [])) == 0
+                          ["--threads", "2"])) == 0
     want = "native" if native.available() else "astar"
     assert cli.LAST_RUN_STATS["engine"] == want
+    assert cli.LAST_RUN_STATS["engine_rates"] == {}
+    assert "engine_rating" not in cli.LAST_RUN_STATS
+    assert calls == [("auto", None, 2, dict(
+        beam_width=None, batch_size=64, min_queue_size=1000,
+        queue_increment=3))]
 
 
 def test_engine_flag_surface():
