@@ -74,12 +74,23 @@ line:
      sha256, rank 1 must write no output file, both ranks must launch
      beam_select (each solves its share of the blocks), and neither may
      load a module of JAX or of the JAX package;
-  10. the golden dataset with --engine auto on cuda:0: the rating's two
-     rates (the device engine's and the native beam's, hets/s), its
-     verdict and its cost; the committed sha256, and the engine that ran
-     must be the verdict (the device only past RATE_MARGIN). Whether the
-     verdict is the engine with the smaller solve stage in step 5 is
-     printed, not checked.
+  10. --engine auto on cuda:0, which starts on the native beam and rates
+     the device engine on a thread, each run with a rate cache of its own
+     in the work directory (never the user's). Every run prints its
+     rates (the device engine's and the native beam's, hets/s), verdict,
+     blocks on each engine, upgrade (the first block on the device and its
+     second) and whether the rates came from the cache; no block may go
+     to the device after a native verdict, nor to native once a cuda
+     verdict was in. A run that ends before its rating is printed as
+     such. 10a: the golden dataset with an empty cache, the committed
+     sha256; then the same rating alone, its rates beside the run's.
+     10b: the golden dataset against 10a's cache (the quiet rating's when
+     10a ended first): a hit, the same rates, and with a cuda verdict the
+     device from the first block; the committed sha256. 10c: step 5's
+     dataset with an empty cache, record-identical to step 5, its wall
+     beside step 5's. 10d: the golden dataset in a new process whose
+     build directory is empty, as on a fresh checkout (the host library
+     and the kernels build in the run); the committed sha256.
 Steps 1-7 and 10 run on cuda:0 alone. Steps 6 and 7 print the device-WFA run's
 wall time, its WFA launches and the pairs each launch carried. Step 7 then
 runs the device-WFA configuration once more under torch.profiler and
@@ -161,6 +172,28 @@ print("RANK " + json.dumps({"rank": rank, "stats": cli.LAST_RUN_STATS,
                             "foreign": foreign}), flush=True)
 torch.distributed.destroy_process_group()
 """ % (MULTIHOST_RANKS, MULTIHOST_TIMEOUT_S)
+
+# step 10d: --engine auto as a fresh checkout runs it, in a new process
+# whose build directory (host library and kernels) is empty: run as
+# ``python -c FRESH_AUTO_SCRIPT repo build-dir argv-json rate-cache``;
+# prints the wall of cli.main, its LAST_RUN_STATS and what the host
+# library's load did
+FRESH_AUTO_TIMEOUT_S = 300
+FRESH_AUTO_SCRIPT = r"""
+import json, pathlib, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from hiphase_tpu_torch.kernels import build
+build.BUILD_DIR = pathlib.Path(sys.argv[2])
+from hiphase_tpu_torch import cli
+from hiphase_tpu_torch.io import native
+t0 = time.perf_counter()
+cli.main(json.loads(sys.argv[3]), device=torch.device("cuda", 0),
+         rate_cache=sys.argv[4])
+print("FRESH " + json.dumps({"wall": time.perf_counter() - t0,
+                             "stats": cli.LAST_RUN_STATS,
+                             "host_library": native.LOADED}), flush=True)
+"""
 
 # The least time the card could take for a kernel's work (`bound`): the
 # larger of its bytes over the memory rate and its int32 operations over
@@ -806,15 +839,16 @@ def check_wfa_kernel(device, window) -> dict:
 # ---------------------------------------------------------------------------
 # steps 4 to 7: the main paths through the CLI
 
-def run_cli(argv, device=None):
-    """cli.main on ``device`` (cuda:0 unless given); returns the wall
-    seconds and the run's LAST_RUN_STATS."""
+def run_cli(argv, device=None, rate_cache=None):
+    """cli.main on ``device`` (cuda:0 unless given) with ``rate_cache``
+    (none unless given: never the user's); returns the wall seconds and
+    the run's LAST_RUN_STATS."""
     import torch
     from hiphase_tpu_torch import cli
     t0 = time.perf_counter()
     if device is None:
         device = torch.device("cuda", 0)
-    if cli.main(argv, device=device) != 0:
+    if cli.main(argv, device=device, rate_cache=rate_cache) != 0:
         raise AssertionError(f"cli exited non-zero: {argv}")
     return time.perf_counter() - t0, dict(cli.LAST_RUN_STATS)
 
@@ -979,33 +1013,142 @@ def check_multihost(workdir: str, meta: dict) -> None:
             raise AssertionError(f"rank {r['rank']} launched no beam_select")
 
 
-def check_auto(workdir: str, meta: dict, step5: dict) -> None:
-    """Step 10: the golden dataset with --engine auto on cuda:0. The
-    committed sha256, both rates of the rating, and the engine that ran
-    equal to the rating's verdict."""
+def auto_summary(stats: dict) -> dict:
+    """What an --engine auto run reports of its choice."""
+    return {k: stats.get(k) for k in (
+        "engine", "engine_rates", "engine_rating", "engine_blocks",
+        "engine_upgrade")}
+
+
+def auto_verdict(rates: dict) -> str:
     from hiphase_tpu_torch.parallel.engine_select import RATE_MARGIN
-    out = golden_outputs(workdir, "auto")
-    secs, stats = run_cli(golden_argv(meta, out, "host", 2, engine="auto"))
+    return ("cuda" if rates["cuda"] > RATE_MARGIN * rates["native"]
+            else "native")
+
+
+def check_auto_run(what: str, stats: dict) -> str | None:
+    """The checks of every --engine auto run: both rates when the rating
+    ended in the run, no block on the device after a native verdict, and
+    after a cuda verdict no block on native once the choice had ended.
+    Returns the verdict, None when the run ended before the rating."""
+    rating = stats.get("engine_rating", {})
+    blocks = stats["engine_blocks"]
+    log(f"auto {what}: {json.dumps(auto_summary(stats))}")
+    if not rating.get("resolved"):
+        log(f"auto {what}: the run ended before the rating did; the rating "
+            f"was stopped at its end, and the run stayed on native")
+        if blocks.get("cuda") or stats["engine"] != "native":
+            raise AssertionError(f"auto {what}: blocks on the device "
+                                 f"without a verdict: {blocks}")
+        return None
     rates = stats["engine_rates"]
     if set(rates) != {"cuda", "native"}:
         raise AssertionError(f"--engine auto rated {sorted(rates)}, "
                              f"expected cuda and native")
-    verdict = ("cuda" if rates["cuda"] > RATE_MARGIN * rates["native"]
-               else "native")
-    log(f"auto: {secs:.2f} s; rates (hets/s) {json.dumps(rates)}, device / "
-        f"native {rates['cuda'] / rates['native']:.3f} (margin "
-        f"{RATE_MARGIN}); verdict {verdict}, ran {stats['engine']}; rating "
-        f"cost {json.dumps(stats['engine_rating'])}")
-    check_golden_digest(out, "--engine auto")
-    if stats["engine"] != verdict:
-        raise AssertionError(f"--engine auto ran {stats['engine']}, the "
-                             f"rating's verdict was {verdict}")
-    solve = {"cuda": step5["stage_seconds"]["solve"],
-             "native": step5["host_stage_seconds"]["solve"]}
-    faster = min(solve, key=solve.get)
-    log(f"auto: step 5's solve stage seconds {json.dumps(solve)}: "
-        f"{faster} was faster there; the verdict "
-        f"{'agrees' if faster == verdict else 'differs'}")
+    verdict = auto_verdict(rates)
+    log(f"auto {what}: rates (hets/s) {json.dumps(rates)}, device / native "
+        f"{rates['cuda'] / rates['native']:.3f}; verdict {verdict}, ran "
+        f"{stats['engine']}, cached {rating['cached']}")
+    if verdict == "native" and blocks.get("cuda"):
+        raise AssertionError(f"auto {what}: {blocks['cuda']} block(s) on "
+                             f"the device after a native verdict")
+    if verdict == "cuda":
+        if rating["late_blocks"]:
+            raise AssertionError(f"auto {what}: {rating['late_blocks']} "
+                                 f"block(s) on native after the choice")
+        if stats["engine"] != "cuda":
+            log(f"auto {what}: the verdict came after the last block")
+    return verdict
+
+
+def check_auto(workdir: str, meta: dict, step5: dict) -> None:
+    """Step 10: --engine auto on cuda:0, each run with its own rate cache
+    in the work directory. 10a: the golden dataset, empty cache, then the
+    same rating run alone (quiet) beside the run's (overlapped); 10b: the
+    golden dataset against 10a's cache (or the quiet rating's, when 10a
+    ended before its rating): a hit, the same rates, and with a cuda
+    verdict the device from the first block; 10c: step 5's dataset with an
+    empty cache, record-identical to step 5; 10d: the golden dataset as a
+    fresh checkout would run it, in a new process whose build directory
+    is empty."""
+    import torch
+
+    from hiphase_tpu_torch.parallel.engine_select import choose_engine
+    cuda0 = (torch.device("cuda", 0),)
+    caches = {x: os.path.join(workdir, f"rates.{x}.json")
+              for x in ("10a", "quiet", "10c", "10d")}
+    # 10a
+    out = golden_outputs(workdir, "auto")
+    secs, stats = run_cli(golden_argv(meta, out, "host", 2, engine="auto"),
+                          rate_cache=caches["10a"])
+    log(f"auto 10a (golden, empty cache): {secs:.2f} s")
+    check_golden_digest(out, "--engine auto (10a)")
+    verdict_a = check_auto_run("10a", stats)
+    t0 = time.perf_counter()
+    quiet = choose_engine("auto", cuda0, 2, rate_cache=caches["quiet"],
+                          beam_width=None, batch_size=64,
+                          min_queue_size=1000, queue_increment=3)
+    log(f"auto quiet rating: {time.perf_counter() - t0:.2f} s, rates "
+        f"(hets/s) {json.dumps(quiet.rates)}, verdict {quiet.engine}; "
+        f"overlapped (10a) {json.dumps(stats['engine_rates'])}, verdict "
+        f"{verdict_a}")
+    # 10b
+    cache_b = caches["10a"] if verdict_a else caches["quiet"]
+    want = stats["engine_rates"] if verdict_a else quiet.rates
+    out = golden_outputs(workdir, "auto.cached")
+    secs, stats = run_cli(golden_argv(meta, out, "host", 2, engine="auto"),
+                          rate_cache=cache_b)
+    log(f"auto 10b (golden, the cache of "
+        f"{'10a' if verdict_a else 'the quiet rating'}): {secs:.2f} s")
+    check_golden_digest(out, "--engine auto (10b)")
+    verdict_b = check_auto_run("10b", stats)
+    if not verdict_b or not stats["engine_rating"]["cached"]:
+        raise AssertionError("auto 10b: no cache hit")
+    if stats["engine_rates"] != want:
+        raise AssertionError(f"auto 10b: rates {stats['engine_rates']} "
+                             f"from the cache, {want} stored")
+    if verdict_b == "cuda" and (
+            stats["engine_upgrade"] is None
+            or stats["engine_upgrade"]["native_blocks_before"] != 0):
+        raise AssertionError(f"auto 10b: a cached cuda verdict, upgrade "
+                             f"{stats['engine_upgrade']}")
+    # 10c
+    bench = step5["meta"]
+    vcf = os.path.join(workdir, "bench.auto.vcf.gz")
+    secs, stats = run_cli(
+        ["--bam", bench["bam"], "--vcf", bench["vcf"],
+         "--reference", bench["fasta"], "--output-vcf", vcf,
+         "--engine", "auto", "--threads", "2",
+         "--disable-global-realignment"], rate_cache=caches["10c"])
+    check_auto_run("10c", stats)
+    up = stats["engine_upgrade"] or {}
+    log(f"auto 10c (local {step5['total_mb']} Mb, empty cache): "
+        f"{secs:.2f} s wall, step 5's cuda {step5['cuda_seconds']:.2f} s "
+        f"and native {step5['native_seconds']:.2f} s; blocks "
+        f"{json.dumps(stats['engine_blocks'])}, upgrade at block "
+        f"{up.get('block')} after {up.get('seconds')} s")
+    if vcf_records(vcf) != vcf_records(
+            os.path.join(workdir, "bench.cuda.vcf.gz")):
+        raise AssertionError("auto 10c: the VCF differs from step 5's")
+    # 10d
+    out = golden_outputs(workdir, "auto.fresh")
+    build_dir = os.path.join(workdir, "fresh_build")
+    proc = subprocess.run(
+        [sys.executable, "-c", FRESH_AUTO_SCRIPT, HERE, build_dir,
+         json.dumps(golden_argv(meta, out, "host", 2, engine="auto")),
+         caches["10d"]], capture_output=True, text=True, cwd=workdir,
+        timeout=FRESH_AUTO_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"auto 10d exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    line = next(ln for ln in proc.stdout.splitlines()
+                if ln.startswith("FRESH "))
+    fresh = json.loads(line[6:])
+    log(f"auto 10d (golden, fresh build directory, empty cache): "
+        f"{fresh['wall']:.2f} s wall in cli.main; host library "
+        f"{json.dumps(fresh['host_library'])}")
+    check_golden_digest(out, "--engine auto (10d)")
+    check_auto_run("10d", fresh["stats"])
 
 
 def vcf_records(path):
@@ -1057,6 +1200,7 @@ def check_local_bench(workdir: str, total_mb: int) -> dict:
         "host_stage_seconds": host_stats.get("stage_seconds"),
         "record_identical": same_vcf and same_blocks}
     log("local bench " + json.dumps(summary))
+    summary["meta"] = meta
     if not same_vcf or not same_blocks:
         raise AssertionError("--engine cuda output differs from "
                              "--engine native")
@@ -1349,7 +1493,7 @@ def main() -> int:
         # 8. step 6 over several devices (row chunks); 9. as two ranks
         check_multi_device(workdir, golden_meta, step6)
         check_multihost(workdir, golden_meta)
-        # 10. --engine auto, rated against the native beam
+        # 10. --engine auto: native at once, the device after its rating
         check_auto(workdir, golden_meta, step5)
 
     table = [{"name": name, "route": "cuda",

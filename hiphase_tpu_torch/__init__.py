@@ -17,6 +17,7 @@ with the same behaviour. What runs on the card is this package's:
   parallel/multihost.py    several processes (a gloo group): sharded block
                            stream, results replayed to rank 0
   parallel/engine_select.py  --engine auto: the device rated against the host
+                           (rates cached), native until the verdict
   phasing/native_beam.py   the native C++ beam engine behind the solver interface
   cli.py                   ``python -m hiphase_tpu_torch.cli --engine cuda``
 

@@ -2,6 +2,6 @@
 
 import sys
 
-from hiphase_tpu_torch.cli import main
+from hiphase_tpu_torch.cli import run_command
 
-sys.exit(main())
+sys.exit(run_command())

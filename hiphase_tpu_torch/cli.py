@@ -20,9 +20,15 @@ its own engine.
 Differences from ``hiphase_tpu.cli``, all deliberate:
   * the device engine is not wrapped in a host fallback: a device or kernel
     error ends the run with that error;
-  * ``--engine auto`` resolves before the run, by rating the device
-    engine against the host engine on a seeded batch when there is a
-    device (see `parallel.engine_select`), and never switches mid-run;
+  * ``--engine auto`` with a device and the native beam starts the run on
+    native at once, rates the device engine against it on a seeded batch
+    on a thread (or reads the rates from its cache, ``rate_cache``), and
+    moves the rest of the run to the device when it wins (see
+    `parallel.engine_select`); a kernel build or rating error ends the
+    run, and a rating still going when the run ends is stopped. Without
+    the native beam, and in a multi-host run, ``auto`` resolves before
+    any work. There is no probe of the device's link and no timeout that
+    moves a run back to the host;
   * ``--wfa-engine device`` aligns dual-mode reads on the CUDA kernel (or,
     with ``device=torch.device("cpu")``, its plain version) whatever the
     engine; with ``--engine astar`` it prepares blocks on threads of this
@@ -30,7 +36,8 @@ Differences from ``hiphase_tpu.cli``, all deliberate:
   * a multi-host run refuses ``--engine astar`` (and an ``auto`` that
     resolves to it) before any work: the JAX package has no multi-host
     handling on its astar paths;
-  * `main` raises on error instead of returning 1.
+  * `main` raises on error instead of returning 1; run as a command
+    (`run_command`), an error is logged as one line and exits 1.
 """
 
 from __future__ import annotations
@@ -48,9 +55,12 @@ import torch
 
 from hiphase_tpu_torch import kernels
 from hiphase_tpu_torch.device import resolve_devices
+from hiphase_tpu_torch.io import native
+from hiphase_tpu_torch.parallel import engine_select
 from hiphase_tpu_torch.parallel import multihost as mh
 from hiphase_tpu_torch.parallel.engine_select import (
-    ENGINES, RATE_MARGIN, choose_engine)
+    DEFAULT_RATE_CACHE, ENGINES, RATE_MARGIN, DeferredUpgradeSolver,
+    EngineChoice, choose_engine)
 from hiphase_tpu_torch.version import full_version
 
 logger = logging.getLogger("hiphase_tpu_torch")
@@ -107,8 +117,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "on a seeded batch beats the host engine's by "
                         f"{RATE_MARGIN}x, "
                         "else the host engine: native when its library "
-                        "loads, else astar. All engines produce identical "
-                        "output.")
+                        "loads, else astar. With native, auto starts on it "
+                        "at once and moves to cuda mid-run once the rating "
+                        "(cached for an hour in ~/.cache/hiphase_tpu_torch/"
+                        "engine_rates.json) favours it. All engines produce "
+                        "identical output.")
     p.add_argument("--beam-width", type=int, default=None,
                    help="TPU engine fast beam width; blocks not provably "
                         "optimal at this width re-solve at the full "
@@ -224,7 +237,8 @@ def global_realignment_config(args):
         wfa_engine=args.wfa_engine)
 
 
-def main(argv=None, device: torch.device | Sequence | None = None) -> int:
+def main(argv=None, device: torch.device | Sequence | None = None,
+         rate_cache: str | os.PathLike | None = DEFAULT_RATE_CACHE) -> int:
     """Run the phaser; returns 0 or raises.
 
     ``device`` is where the cuda engine runs: None means every CUDA device
@@ -232,7 +246,8 @@ def main(argv=None, device: torch.device | Sequence | None = None) -> int:
     list of them, one row chunk of each batch an entry (a device may
     repeat). ``torch.device("cpu")`` runs the kernels' plain PyTorch
     versions instead. The device WFA (``--wfa-engine device``) runs on the
-    first of them.
+    first of them. ``rate_cache`` is the file in which ``--engine auto``
+    keeps its measured rates (None: no cache).
     """
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -248,12 +263,27 @@ def main(argv=None, device: torch.device | Sequence | None = None) -> int:
     # the cuda engine would run on, when there are any
     devices = (resolve_devices(device)
                if device is not None or torch.cuda.is_available() else None)
-    choice = choose_engine(
-        args.engine, devices, args.threads, beam_width=args.beam_width,
-        batch_size=args.batch_size, min_queue_size=args.phase_min_queue_size,
-        queue_increment=args.phase_queue_increment)
-    engine = choice.engine
+    widths = dict(beam_width=args.beam_width, batch_size=args.batch_size,
+                  min_queue_size=args.phase_min_queue_size,
+                  queue_increment=args.phase_queue_increment)
     multihost = mh.is_multihost()
+    # 'auto' with devices and the native beam does not wait for the
+    # choice: the run starts on native while the kernels build and the
+    # engines are rated on a thread. A multi-host run waits (its ranks
+    # refuse astar together), and so does a run without the native beam,
+    # which has nothing quick to start on.
+    background = None
+    if (args.engine == "auto" and devices is not None and not multihost
+            and native.available()):
+        background = engine_select.BackgroundChoice(
+            devices, args.threads, rate_cache, **widths)
+        choice = EngineChoice("native")
+        logger.info("Engine 'auto': starting on 'native' while the device "
+                    "engine is rated")
+    else:
+        choice = choose_engine(args.engine, devices, args.threads,
+                               rate_cache=rate_cache, **widths)
+    engine = choice.engine
     if multihost:
         if torch.distributed.get_backend() != "gloo":
             raise SystemExit("a multi-host run needs a gloo process group "
@@ -269,6 +299,18 @@ def main(argv=None, device: torch.device | Sequence | None = None) -> int:
                 "use --engine cuda or native, or run in a single process")
         logger.info("Multi-host run: rank %d of %d", mh.host_index(),
                     mh.host_count())
+    try:
+        return _run(args, argv, device, devices, choice, background)
+    finally:
+        if background is not None:
+            background.stop()
+
+
+def _run(args, argv, device, devices, choice, background) -> int:
+    """The run of `main` on the engine it chose, or, with ``background``,
+    on native until the background choice upgrades it."""
+    engine = choice.engine
+    multihost = mh.is_multihost()
     is_writer_host = mh.host_index() == 0
 
     from hiphase_tpu_torch.core.reference_genome import ReferenceGenome
@@ -306,17 +348,20 @@ def main(argv=None, device: torch.device | Sequence | None = None) -> int:
         wfa_counters = WfaCounters()
         logger.info("Device WFA on %s", _device_name(wfa_device))
 
-    solver = None
-    if engine == "cuda":
+    def device_solver():
         from hiphase_tpu_torch.parallel.orchestrator import BatchedDeviceSolver
         devs = devices if devices is not None else resolve_devices(device)
         logger.info("Device engine on %s",
                     ", ".join(_device_name(d) for d in devs))
-        solver = BatchedDeviceSolver(
+        return BatchedDeviceSolver(
             devs, beam_width=args.beam_width, batch_size=args.batch_size,
             min_queue_size=args.phase_min_queue_size,
             queue_increment=args.phase_queue_increment,
             compute_estimates=args.stats_file is not None)
+
+    solver = None
+    if engine == "cuda":
+        solver = device_solver()
     elif engine == "native":
         from hiphase_tpu_torch.phasing.native_beam import NativeBeamSolver
         solver = NativeBeamSolver(
@@ -324,6 +369,9 @@ def main(argv=None, device: torch.device | Sequence | None = None) -> int:
             min_queue_size=args.phase_min_queue_size,
             queue_increment=args.phase_queue_increment, threads=args.threads,
             compute_estimates=args.stats_file is not None)
+        if background is not None:
+            solver = DeferredUpgradeSolver(solver, background, device_solver,
+                                           started=background.started)
     elif wfa_device is not None:
         solver = HostAStarSolver(args.phase_min_queue_size,
                                  args.phase_queue_increment)
@@ -385,6 +433,8 @@ def main(argv=None, device: torch.device | Sequence | None = None) -> int:
 
     start_time = time.time()
     results_received = 0
+    # blocks each engine solved (a deferred 'auto' run counts its own)
+    engine_blocks = {engine: 0}
     total_variants = 0
     # cumulative per-stage busy time (thread-summed; stages overlap)
     stage_s = {"block_gen": 0.0, "prepare": 0.0, "solve": 0.0,
@@ -511,6 +561,8 @@ def main(argv=None, device: torch.device | Sequence | None = None) -> int:
                     t0 = time.perf_counter()
                     results = solver.submit(item)
                     stage_s["solve"] += time.perf_counter() - t0
+                    if not isinstance(solver, DeferredUpgradeSolver):
+                        engine_blocks[engine] += 1
                     publish(results)
                 if replay is not None:
                     for pr, hr in replay.tick():
@@ -523,11 +575,13 @@ def main(argv=None, device: torch.device | Sequence | None = None) -> int:
                 for pr, hr in replay.finish():
                     emit(pr, hr)
         elif args.threads > 1:
-            _astar_pool(args, reference_genome, sample_to_bams, global_config,
-                        windowed(block_iterator), should_solve, emit)
+            engine_blocks[engine] = _astar_pool(
+                args, reference_genome, sample_to_bams, global_config,
+                windowed(block_iterator), should_solve, emit)
         else:
             for block in windowed(block_iterator):
                 if should_solve(block):
+                    engine_blocks[engine] += 1
                     emit(*solve_block(
                         block, args.vcfs, sample_to_bams[block.sample_name],
                         reference_genome,
@@ -577,29 +631,56 @@ def main(argv=None, device: torch.device | Sequence | None = None) -> int:
     elapsed = time.time() - start_time
     logger.info("Phasing complete: %d blocks, %d variants in %.2fs",
                 results_received, total_variants, elapsed)
+    upgrade = None
+    native_solver = dev_solver = None
+    if isinstance(solver, DeferredUpgradeSolver):
+        # the choice made in the background, None when the run ended first
+        choice = solver.choice or EngineChoice("native")
+        engine, engine_blocks = solver.engine, dict(solver.blocks)
+        if solver.upgrade is not None:
+            block, before, secs = solver.upgrade
+            upgrade = {"block": block, "native_blocks_before": before,
+                       "seconds": secs}
+        if engine_blocks["native"]:
+            native_solver = solver.native
+        dev_solver = solver.device
+    elif engine == "native":
+        native_solver = solver
+    elif engine == "cuda":
+        dev_solver = solver
     LAST_RUN_STATS.update(engine=engine, engine_rates=choice.rates,
+                          engine_blocks=engine_blocks, engine_upgrade=upgrade,
                           blocks=results_received, variants=total_variants,
                           phasing_seconds=elapsed)
     if choice.rates:
         LAST_RUN_STATS["engine_rating"] = {
             "seconds": choice.seconds,
-            "kernel_build_seconds": choice.build_seconds}
-    if engine == "native":
-        LAST_RUN_STATS.update(node_expansions=solver.total_expansions,
-                              solve_seconds=solver.solve_seconds)
-    if engine == "cuda":
+            "kernel_build_seconds": choice.build_seconds,
+            "cached": choice.cached}
+    if background is not None:
+        LAST_RUN_STATS["engine_rating"] = {
+            **LAST_RUN_STATS.get("engine_rating", {}),
+            "in_background": True,
+            "resolved": solver.choice is not None,
+            "ended_seconds": background.ended_at - background.started,
+            "late_blocks": solver.late_blocks}
+    if native_solver is not None:
+        LAST_RUN_STATS.update(node_expansions=native_solver.total_expansions,
+                              solve_seconds=native_solver.solve_seconds)
+    if dev_solver is not None:
         LAST_RUN_STATS.update(
-            device=_device_name(solver.device),
-            devices=[_device_name(d) for d in solver.devices],
-            device_batches=solver.device_batches,
-            device_transfers=solver.device_transfers,
-            transfers_per_batch=(round(solver.device_transfers
-                                       / solver.device_batches, 2)
-                                 if solver.device_batches else None))
+            device=_device_name(dev_solver.device),
+            devices=[_device_name(d) for d in dev_solver.devices],
+            device_batches=dev_solver.device_batches,
+            device_transfers=dev_solver.device_transfers,
+            transfers_per_batch=(
+                round(dev_solver.device_transfers
+                      / dev_solver.device_batches, 2)
+                if dev_solver.device_batches else None))
     if wfa_device is not None:
         LAST_RUN_STATS.update(wfa_device=_device_name(wfa_device),
                               wfa=wfa_counters.as_dict())
-    if engine == "cuda" or wfa_device is not None:
+    if dev_solver is not None or wfa_device is not None:
         after = kernels.launch_counts()
         LAST_RUN_STATS["kernel_launches"] = {
             k: after[k] - launches_before[k] for k in after}
@@ -642,9 +723,10 @@ class HostAStarSolver:
 
 
 def _astar_pool(args, reference_genome, sample_to_bams, global_config,
-                blocks, should_solve, emit) -> None:
+                blocks, should_solve, emit) -> int:
     """Host A* on a fork-based process pool with the reference's
-    40×threads in-flight window (ref: main.rs:325-462)."""
+    40×threads in-flight window (ref: main.rs:325-462); returns the
+    number of blocks solved."""
     import multiprocessing
     from collections import deque
 
@@ -661,6 +743,7 @@ def _astar_pool(args, reference_genome, sample_to_bams, global_config,
         global_config=global_config)
     ctx = multiprocessing.get_context("fork")
     job_slots = 40 * args.threads
+    solved = 0
     with ctx.Pool(args.threads) as pool:
         inflight: deque = deque()
 
@@ -670,6 +753,7 @@ def _astar_pool(args, reference_genome, sample_to_bams, global_config,
 
         for block in blocks:
             if should_solve(block):
+                solved += 1
                 inflight.append(("solve", pool.apply_async(
                     workers.solve_block_worker, (block,))))
             else:
@@ -678,7 +762,18 @@ def _astar_pool(args, reference_genome, sample_to_bams, global_config,
                 emit_one(*inflight.popleft())
         while inflight:
             emit_one(*inflight.popleft())
+    return solved
+
+
+def run_command(argv=None) -> int:
+    """`main` as a command: an error is logged as one line and gives exit
+    status 1, as in the JAX package (``SystemExit`` keeps its own)."""
+    try:
+        return main(argv)
+    except Exception as e:
+        logger.error("%s: %s", type(e).__name__, e)
+        return 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_command())

@@ -216,11 +216,14 @@ def backtrace_plan(batch: int, width: int, columns: int,
 
 
 def build_all() -> dict[str, build.BuiltKernel]:
-    """Build (one nvcc per source, all at once) and bind every kernel."""
+    """Build (one nvcc per source, all at once) and bind every kernel not
+    bound yet. It holds the lock of a kernel's lazy build at first launch,
+    so that the two never build one source twice."""
     with _BUILD_LOCK:
         built = build.build(list(KERNELS))
         for name, b in built.items():
-            KERNELS[name].bind(b.library)
+            if KERNELS[name]._fn is None:
+                KERNELS[name].bind(b.library)
     return built
 
 

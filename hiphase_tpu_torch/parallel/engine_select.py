@@ -1,7 +1,6 @@
 """Engine selection for the torch port.
 
-``--engine auto`` resolves once, before the run. Given the devices the
-cuda engine would run on, it rates the device engine against the host
+``--engine auto`` with devices rates the device engine against the host
 rung on one seeded in-memory batch shaped like the local bench
 configuration (`rating_workload`): the device engine
 (`BatchedDeviceSolver` at the run's widths, through submit and drain) on
@@ -13,17 +12,31 @@ its rate in hets/s beats the host rung's by RATE_MARGIN. Without devices
 library loads, else the host A* oracle, and nothing is rated. An explicit
 engine is never rated.
 
-The choice is logged and holds for the whole run; a device error ends the
-run instead of switching engines. Nothing is cached: PERF.md gives the
-rating's cost on the card.
+The rates are a property of the hardware and the code, not of the moment,
+so they are kept in a JSON file (`choose_engine`'s ``rate_cache``; the
+CLI's default is DEFAULT_RATE_CACHE) for RATE_CACHE_TTL seconds, under a
+key of everything that sets them (`rate_cache_key`). A hit skips the
+rating; with a ``cuda`` verdict the kernels are still built.
+
+`BackgroundChoice` runs `choose_engine` on a thread of its own, and
+`DeferredUpgradeSolver` starts the run on the native beam at once and
+moves to the device engine at the first block after a ``cuda`` verdict:
+the engines give the same bytes, so the switch changes no output. An
+error of the kernel build or of the rating ends the run; at the end of
+the run a rating still going is stopped between passes and joined.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import logging
+import os
+import threading
 import time
 from collections.abc import Sequence
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -63,16 +76,28 @@ RATING_REPS = 2
 NATIVE_BLOCKS_PER_THREAD = 2
 ASTAR_BLOCKS = 1
 
+# the rate cache: the CLI's file (the JAX package keeps its rates in
+# ~/.cache/hiphase_tpu/device_probe.json), and how long an entry holds
+DEFAULT_RATE_CACHE = "~/.cache/hiphase_tpu_torch/engine_rates.json"
+RATE_CACHE_TTL = 3600.0
+
+
+class RatingStopped(Exception):
+    """The rating was asked to stop (`BackgroundChoice.stop`) before it
+    ended; nothing was chosen or cached."""
+
 
 @dataclass
 class EngineChoice:
     engine: str
     # hets/s by engine; empty when nothing was rated
     rates: dict[str, float] = field(default_factory=dict)
-    # the rating's wall time (workload, warm-ups and timed passes) and,
-    # before it, the kernel builds
+    # the rating's wall time (workload, warm-ups and timed passes, or the
+    # cache lookup) and, before it, the kernel builds
     seconds: float = 0.0
     build_seconds: float = 0.0
+    # the rates came from the rate cache
+    cached: bool = False
 
 
 def rating_workload(seed: int = RATING_SEED, blocks: int = RATING_BLOCKS,
@@ -118,12 +143,15 @@ def rating_workload(seed: int = RATING_SEED, blocks: int = RATING_BLOCKS,
 
 
 def _pass_seconds(make_solver, blocks: list, reps: int,
-                  warmup: list | None = None) -> float:
+                  warmup: list | None = None,
+                  stop: threading.Event | None = None) -> float:
     """Wall seconds of the fastest of ``reps`` passes of ``blocks``, each
     through a new solver (submit each block, then drain), after one
     untimed pass of ``warmup``. A pass ends with every block's result on
-    the host."""
+    the host. Raises RatingStopped before a pass once ``stop`` is set."""
     def one_pass(blocks) -> float:
+        if stop is not None and stop.is_set():
+            raise RatingStopped
         t0 = time.perf_counter()
         solver = make_solver()
         results = []
@@ -145,35 +173,112 @@ def _hets(blocks: list) -> int:
 
 
 def measure_rates(devices: Sequence[torch.device], threads: int,
-                  solver_kw: dict, workload: list) -> dict[str, float]:
+                  solver_kw: dict, workload: list,
+                  stop: threading.Event | None = None) -> dict[str, float]:
     """hets/s of the device engine on ``devices`` and of the host rung on
     ``workload`` (the host rung on its first blocks, see RATING_REPS),
-    keyed by engine."""
+    keyed by engine. Raises RatingStopped between passes once ``stop`` is
+    set."""
     from hiphase_tpu_torch.parallel.orchestrator import BatchedDeviceSolver
     rates = {"cuda": _hets(workload) / _pass_seconds(
         lambda: BatchedDeviceSolver(devices, **solver_kw), workload,
-        RATING_REPS, warmup=workload[:1])}
+        RATING_REPS, warmup=workload[:1], stop=stop)}
     if native.available():
         from hiphase_tpu_torch.phasing.native_beam import NativeBeamSolver
         blocks = workload[:NATIVE_BLOCKS_PER_THREAD * max(threads, 1)]
         rates["native"] = _hets(blocks) / _pass_seconds(
             lambda: NativeBeamSolver(threads=threads, **solver_kw), blocks,
-            RATING_REPS)
+            RATING_REPS, stop=stop)
     else:
         from hiphase_tpu_torch.cli import HostAStarSolver
         blocks = workload[:ASTAR_BLOCKS]
         rates["astar"] = _hets(blocks) / _pass_seconds(
             lambda: HostAStarSolver(solver_kw["min_queue_size"],
-                                    solver_kw["queue_increment"]), blocks, 1)
+                                    solver_kw["queue_increment"]), blocks, 1,
+            stop=stop)
     return rates
+
+
+def _file_digest(path) -> str | None:
+    if path is None:
+        return None
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()[:16]
+
+
+def rate_cache_key(devices: Sequence[torch.device], threads: int,
+                   solver_kw: dict) -> dict:
+    """Everything that sets the rates: the rated devices, torch and its
+    CUDA, the kernel libraries (named by the hash of their sources and
+    flags), the host library, the host's cores and --threads, the run's
+    solver widths and the rating workload's constants."""
+    from hiphase_tpu_torch import kernels
+    native.available()
+    return {
+        "devices": [torch.cuda.get_device_name(d) if d.type == "cuda"
+                    else str(d) for d in devices],
+        "torch": torch.__version__, "torch_cuda": torch.version.cuda,
+        "kernels": [kernels.build.library_path(n).name
+                    for n in sorted(kernels.KERNELS)],
+        "host_library": [native.LOADED.get("origin"),
+                         native.LOADED.get("codec"),
+                         _file_digest(native.LOADED.get("path"))],
+        "cpu_count": os.cpu_count(), "threads": threads,
+        "solver": {k: solver_kw[k] for k in sorted(solver_kw)},
+        "workload": [RATING_SEED, RATING_BLOCKS, BLOCK_BP, HET_SPACING,
+                     READ_LENGTH, COVERAGE, ALLELE_ERROR, INDEL_SHARE,
+                     SNV_QUAL, INDEL_QUAL, RATING_REPS,
+                     NATIVE_BLOCKS_PER_THREAD, ASTAR_BLOCKS]}
+
+
+def _cache_entries(path: Path) -> list:
+    """The file's entries; an unreadable or malformed file has none."""
+    try:
+        entries = json.loads(path.read_text())["entries"]
+    except (OSError, ValueError, KeyError, TypeError):
+        return []
+    return entries if isinstance(entries, list) else []
+
+
+def cache_lookup(path: Path, key: dict) -> dict[str, float] | None:
+    """The rates stored under ``key`` less than RATE_CACHE_TTL seconds
+    ago, else None."""
+    now = time.time()
+    for e in _cache_entries(path):
+        try:
+            if e["key"] == key and 0 <= now - e["time"] < RATE_CACHE_TTL:
+                return {k: float(v) for k, v in e["rates"].items()}
+        except (KeyError, TypeError, AttributeError, ValueError):
+            continue
+    return None
+
+
+def cache_store(path: Path, key: dict, rates: dict[str, float]) -> None:
+    """Store ``rates`` under ``key``, keeping the file's other live
+    entries. The file is written under a temporary name and renamed into
+    place: ranks and concurrent runs may share it."""
+    now = time.time()
+    keep = [e for e in _cache_entries(path)
+            if isinstance(e, dict) and e.get("key") != key
+            and isinstance(e.get("time"), (int, float))
+            and 0 <= now - e["time"] < RATE_CACHE_TTL]
+    keep.append({"key": key, "rates": rates, "time": now})
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(
+        f".{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    tmp.write_text(json.dumps({"entries": keep}, indent=1))
+    os.replace(tmp, path)
 
 
 def choose_engine(requested: str,
                   devices: Sequence[torch.device] | None = None,
-                  threads: int = 1, **solver_kw) -> EngineChoice:
+                  threads: int = 1, rate_cache: str | os.PathLike | None = None,
+                  stop: threading.Event | None = None,
+                  **solver_kw) -> EngineChoice:
     """Resolve the --engine flag. ``devices`` are the devices the cuda
-    engine would run on, None when there are none; ``solver_kw`` are the
-    run's solver widths (beam_width, batch_size, min_queue_size,
+    engine would run on, None when there are none; ``rate_cache`` is the
+    rate cache's file (``~`` expands), None for none; ``stop`` ends a
+    rating between passes (RatingStopped); ``solver_kw`` are the run's
+    solver widths (beam_width, batch_size, min_queue_size,
     queue_increment)."""
     if requested != "auto":
         return EngineChoice(requested)
@@ -184,22 +289,168 @@ def choose_engine(requested: str,
         logger.info("Engine 'auto' resolved to %r (%s)", host, why)
         return EngineChoice(host)
 
+    t0 = time.perf_counter()
+    cache = key = rates = None
+    if rate_cache is not None:
+        cache = Path(rate_cache).expanduser()
+        key = rate_cache_key(devices, threads, solver_kw)
+        rates = cache_lookup(cache, key)
+        if rates is not None and set(rates) != {"cuda", host}:
+            rates = None   # an entry edited by hand: rate again
+    lookup_s = time.perf_counter() - t0
     build_s = 0.0
-    if devices[0].type == "cuda":
+    if devices[0].type == "cuda" and (
+            rates is None or _verdict(rates, host) == "cuda"):
         from hiphase_tpu_torch import kernels
+        if stop is not None and stop.is_set():
+            raise RatingStopped
         t0 = time.perf_counter()
         kernels.build_all()
         build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rates = measure_rates(devices, threads, solver_kw, rating_workload())
-    seconds = time.perf_counter() - t0
-    engine = "cuda" if rates["cuda"] > RATE_MARGIN * rates[host] else host
-    logger.info("Engine 'auto': the device engine on %s measured %.0f "
-                "hets/s, %s %.0f hets/s%s (margin %.1fx) -> %r; rating "
+    cached = rates is not None
+    if cached:
+        seconds = lookup_s
+    else:
+        t0 = time.perf_counter()
+        rates = measure_rates(devices, threads, solver_kw, rating_workload(),
+                              stop=stop)
+        seconds = time.perf_counter() - t0
+        if cache is not None:
+            try:
+                cache_store(cache, key, rates)
+            except OSError as e:
+                logger.warning("The engine rates were not cached in %s: %s",
+                               cache, e)
+    engine = _verdict(rates, host)
+    logger.info("Engine 'auto': the device engine on %s %s %.0f "
+                "hets/s, %s %.0f hets/s%s (margin %.1fx) -> %r; %s "
                 "%.2f s after %.2f s of kernel builds",
-                ", ".join(map(str, devices)), rates["cuda"], host,
-                rates[host],
+                ", ".join(map(str, devices)),
+                "was rated (cached) at" if cached else "measured",
+                rates["cuda"], host, rates[host],
                 f" over the first {ASTAR_BLOCKS} block(s)"
-                if host == "astar" else "", RATE_MARGIN, engine, seconds,
-                build_s)
-    return EngineChoice(engine, rates, seconds, build_s)
+                if host == "astar" else "", RATE_MARGIN, engine,
+                "cache lookup" if cached else "rating", seconds, build_s)
+    return EngineChoice(engine, rates, seconds, build_s, cached)
+
+
+def _verdict(rates: dict[str, float], host: str) -> str:
+    return "cuda" if rates["cuda"] > RATE_MARGIN * rates[host] else host
+
+
+class BackgroundChoice:
+    """`choose_engine` for ``auto`` on a thread of its own, started here.
+
+    `done` says whether it has ended, `result` waits for it and returns
+    the choice or raises the choice's error, and `stop` asks a rating
+    still going to end before its next pass, then joins the thread (a
+    kernel build in progress ends first: no nvcc process outlives it)."""
+
+    def __init__(self, devices: Sequence[torch.device], threads: int,
+                 rate_cache: str | os.PathLike | None, **solver_kw):
+        self._stop = threading.Event()
+        self._ended = threading.Event()
+        self._choice: EngineChoice | None = None
+        self._error: BaseException | None = None
+        self.started = time.perf_counter()
+        self.ended_at: float | None = None   # perf_counter at its end
+        self._thread = threading.Thread(
+            target=self._run, name="engine-rating",
+            args=(devices, threads, rate_cache, solver_kw))
+        self._thread.start()
+
+    def _run(self, devices, threads, rate_cache, solver_kw) -> None:
+        try:
+            self._choice = choose_engine("auto", devices, threads,
+                                         rate_cache=rate_cache,
+                                         stop=self._stop, **solver_kw)
+        except BaseException as e:  # re-raised by result() on the caller
+            self._error = e
+        finally:
+            self.ended_at = time.perf_counter()
+            self._ended.set()
+
+    def done(self) -> bool:
+        return self._ended.is_set()
+
+    def result(self) -> EngineChoice | None:
+        """The choice; None when `stop` ended the rating first. Raises the
+        error of the build or the rating."""
+        self._thread.join()
+        if isinstance(self._error, RatingStopped):
+            return None
+        if self._error is not None:
+            raise self._error
+        return self._choice
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+class DeferredUpgradeSolver:
+    """The run's solver for ``auto`` while `BackgroundChoice` decides: the
+    native beam at first, and, from the first `submit` after a ``cuda``
+    verdict, the device engine (`make_device_solver`, called once on this
+    thread), after the native beam drains. The solver interface of
+    `BatchedDeviceSolver`.
+
+    An error of the choice is raised at the next `submit` or at `drain`.
+    `drain` stops a rating still going, joins it and drains the solver in
+    use. ``blocks`` counts the blocks each engine was given; ``upgrade``
+    is (the block index of the first block given to the device, the number
+    of blocks given to native before it, seconds from ``started``) or
+    None; ``late_blocks`` counts blocks given to native after the choice
+    had ended (0 unless the switch lags the choice)."""
+
+    def __init__(self, native_solver, choice: BackgroundChoice,
+                 make_device_solver, started: float | None = None):
+        self.native = native_solver
+        self.device = None
+        self._choice = choice
+        self._make = make_device_solver
+        self.started = time.perf_counter() if started is None else started
+        self.engine = "native"
+        self.choice: EngineChoice | None = None
+        self.blocks = {"native": 0, "cuda": 0}
+        self.upgrade: tuple[int, int, float] | None = None
+        self.late_blocks = 0
+
+    def _resolve(self, wait: bool) -> list:
+        """Take the choice once it has ended (or, with ``wait``, stop and
+        join it); returns the native results drained at a switch."""
+        if self._choice is None or not (wait or self._choice.done()):
+            return []
+        choice, self._choice = self._choice, None
+        if wait:
+            choice.stop()
+        self.choice = choice.result()
+        if wait or self.choice is None or self.choice.engine != "cuda":
+            return []
+        out = self.native.drain()
+        self.device = self._make()
+        self.engine = "cuda"
+        logger.info("Engine 'auto': the rating chose the device engine; "
+                    "blocks from here on go to it (%d block(s) went to "
+                    "native)", self.blocks["native"])
+        return out
+
+    def submit(self, data):
+        t0 = time.perf_counter()
+        out = self._resolve(wait=False)
+        if self.engine == "cuda":
+            if self.upgrade is None:
+                self.upgrade = (data.phase_block.block_index,
+                                self.blocks["native"], t0 - self.started)
+            out.extend(self.device.submit(data))
+        else:
+            ended = self._choice.ended_at if self._choice else None
+            if ended is not None and ended < t0:
+                self.late_blocks += 1
+            out.extend(self.native.submit(data))
+        self.blocks[self.engine] += 1
+        return out
+
+    def drain(self):
+        self._resolve(wait=True)
+        return (self.device or self.native).drain()

@@ -8,7 +8,8 @@ load while it runs. Checked two ways:
   process: import every module of hiphase_tpu_torch and chip_smoke.py, run
   a tiny solve and tiny CLI runs on the CPU (the cuda and native engines
   in dual mode on the host WFA, astar in local mode, dual mode with
-  --wfa-engine device, and the cuda engine over three devices), then
+  --wfa-engine device, the cuda engine over three devices, and --engine
+  auto upgrading from native to the device engine), then
   assert that no JAX module and no module of the JAX package was loaded.
   The dataset is built in this process beforehand, so the subprocess sees
   only the port. The ranks of a two-process multi-host run make the same
@@ -89,6 +90,23 @@ assert cli.main(["--bam", bam, "--vcf", vcf, "--reference", fasta,
                  "--batch-size", "4", "--disable-global-realignment"],
                 device=[torch.device("cpu")] * 3) == 0
 assert cli.LAST_RUN_STATS["transfers_per_batch"] == 6.0
+# --engine auto: started on native, rated on a thread (fixed rates), the
+# rates cached, and upgraded to the device engine at its first block
+from hiphase_tpu_torch.parallel import engine_select
+engine_select.measure_rates = lambda *a, **kw: {"cuda": 1e9, "native": 1.0}
+class ResolvedFirst(engine_select.BackgroundChoice):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._thread.join()
+engine_select.BackgroundChoice = ResolvedFirst
+assert cli.main(["--bam", bam, "--vcf", vcf, "--reference", fasta,
+                 "--output-vcf", str(out / "auto.vcf.gz"),
+                 "--engine", "auto", "--disable-global-realignment"],
+                device=torch.device("cpu"),
+                rate_cache=out / "rates.json") == 0
+assert cli.LAST_RUN_STATS["engine"] == "cuda", cli.LAST_RUN_STATS
+assert cli.LAST_RUN_STATS["engine_upgrade"] is not None
+assert (out / "rates.json").exists()
 
 jax_modules = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -5,9 +5,17 @@ hidden fallback).
 
 The cuda engine runs its kernels' plain PyTorch versions here because the
 tests pass ``device=torch.device("cpu")`` explicitly.
+
+Run as a command (``python -m hiphase_tpu_torch`` or ``-m
+hiphase_tpu_torch.cli``), an error ends in one logged line and exit
+status 1, with no traceback; `cli.main` raises it.
 """
 
 import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -157,15 +165,19 @@ def test_auto_without_cuda_resolves_to_a_host_engine(tmp_path, monkeypatch):
         raise AssertionError("rated without a device")
     monkeypatch.setattr(cli, "choose_engine", spy)
     monkeypatch.setattr(engine_select, "measure_rates", rated)
+    cache = tmp_path / "rates.json"
     assert cli.main(_argv(fasta, vcf, bam, _outputs(tmp_path, "auto"),
-                          ["--threads", "2"])) == 0
+                          ["--threads", "2"]), rate_cache=cache) == 0
     want = "native" if native.available() else "astar"
     assert cli.LAST_RUN_STATS["engine"] == want
     assert cli.LAST_RUN_STATS["engine_rates"] == {}
+    assert cli.LAST_RUN_STATS["engine_upgrade"] is None
+    assert cli.LAST_RUN_STATS["engine_blocks"][want] > 0
     assert "engine_rating" not in cli.LAST_RUN_STATS
     assert calls == [("auto", None, 2, dict(
-        beam_width=None, batch_size=64, min_queue_size=1000,
-        queue_increment=3))]
+        rate_cache=cache, beam_width=None, batch_size=64,
+        min_queue_size=1000, queue_increment=3))]
+    assert not cache.exists()
 
 
 def test_engine_flag_surface():
@@ -175,3 +187,39 @@ def test_engine_flag_surface():
     with pytest.raises(SystemExit):
         parser.parse_args(["--bam", "b", "--vcf", "v", "--output-vcf", "o",
                            "-r", "r", "--engine", "tpu"])
+
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("module", ["hiphase_tpu_torch",
+                                    "hiphase_tpu_torch.cli"])
+@pytest.mark.parametrize("fault", ["missing_reference", "corrupt_bam"])
+def test_the_command_exits_1_on_error_without_a_traceback(tmp_path, module,
+                                                          fault):
+    from hiphase_tpu_torch.io.bgzf import BgzfError
+    fasta, vcf, bam, _contigs, _ = build_dataset(
+        tmp_path, seed=29, n_contigs=1, contig_len=3000)
+    if fault == "missing_reference":
+        fasta = str(tmp_path / "missing.fa")
+    else:
+        with open(bam, "wb") as fh:
+            fh.write(b"\x1f\x8b" + b"x" * 300)
+    argv = ["--bam", bam, "--vcf", vcf, "--reference", fasta,
+            "--output-vcf", str(tmp_path / "out.vcf.gz"),
+            "--engine", "native"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-m", module, *argv],
+                          capture_output=True, text=True, env=env,
+                          cwd=str(tmp_path), timeout=300)
+    assert proc.returncode == 1, proc.stderr[-3000:]
+    assert "Traceback" not in proc.stderr
+    if fault == "missing_reference":
+        assert f"File does not exist: {fasta}" in proc.stderr
+    else:
+        errors = [ln for ln in proc.stderr.splitlines() if " ERROR " in ln]
+        assert len(errors) == 1 and "BgzfError" in errors[0], proc.stderr
+    # a library caller gets the error itself
+    with pytest.raises(SystemExit if fault == "missing_reference"
+                       else BgzfError):
+        cli.main(argv)

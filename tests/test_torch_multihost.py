@@ -50,6 +50,8 @@ CLI_RANK_SCRIPT = PRELUDE + textwrap.dedent("""
     from hiphase_tpu_torch import cli
     out = {outputs!r}
     out = {{k: v.format(rank=rank) for k, v in out.items()}}
+    main_kw = {{}}
+    {setup}
     rc = cli.main(["--bam", {bam!r}, "--vcf", {vcf!r},
                    "--reference", {fasta!r},
                    "--output-vcf", out["vcf.gz"], "--output-bam", out["bam"],
@@ -60,7 +62,7 @@ CLI_RANK_SCRIPT = PRELUDE + textwrap.dedent("""
                    "--engine", {engine!r}, "--threads", "2",
                    "--beam-width", "64", "--batch-size", "4",
                    "--disable-global-realignment"],
-                  device=torch.device("cpu"))
+                  device=torch.device("cpu"), **main_kw)
     print("STATS " + json.dumps(cli.LAST_RUN_STATS))
     print("FOREIGN " + json.dumps(foreign_modules()))
     torch.distributed.destroy_process_group()
@@ -150,14 +152,17 @@ def _outputs(tmp_path, name):
              "summary.tsv")}
 
 
-def run_cli_ranks(tmp_path, data, n, engine):
+def run_cli_ranks(tmp_path, data, n, engine, setup=""):
     """The CLI in ``n`` ranks; each rank's outputs are named after it.
+    ``setup`` is code run in each rank before `cli.main` (it may set
+    ``main_kw``, the keyword arguments of `cli.main` but ``device``).
     Returns (rank-0 outputs, each rank's LAST_RUN_STATS, each rank's
     foreign modules)."""
     fasta, vcf, bam = data
     outs = run_ranks(tmp_path, f"cli{n}", CLI_RANK_SCRIPT, n,
                      outputs=_outputs(tmp_path, f"multi{n}.r{{rank}}"),
-                     fasta=fasta, vcf=vcf, bam=bam, engine=engine)
+                     fasta=fasta, vcf=vcf, bam=bam, engine=engine,
+                     setup=textwrap.dedent(setup).strip() or "pass")
     for r in range(1, n):
         assert not [p for p in _outputs(tmp_path, f"multi{n}.r{r}").values()
                     if os.path.exists(p)], f"rank {r} wrote output files"
