@@ -1,0 +1,605 @@
+"""Global realignment: graph-WFA allele assignment with the deterministic
+fallback ladder (ref: src/read_parsing.rs:520-867).
+
+Per read: build the window WFA graph over the het+hom variants the mapping
+overlaps, align the read's aligned subsequence, and map traversed branch
+nodes back to allele assignments (conflicts → Ambiguous). Qualities are
+exactly 2× the per-type baselines. On MaxEditDistance the read falls back to
+local realignment; once failures reach the configured count AND ratio, the
+whole block reverts to local for the remainder (encounter order preserved —
+a determinism requirement, ref: CHANGELOG.md:33-46).
+
+Two aligners, chosen by ``--wfa-engine``:
+
+  * ``host`` — the reference's host path (the C++ wavefront aligner through
+    ``io/native.py``, batched per fetched record chunk, else the Python
+    aligner read by read). This is ``hiphase_tpu/phasing/global_realign.py``.
+  * ``device`` — the banded graph DP of `align.wfa_device` on an explicit
+    torch device, in two passes over a block's reads: pass 1 builds every
+    read's window graph and aligns all of them in one batched band ladder
+    (a few kernel launches per block); pass 2 walks the reads in BAM order
+    as the host path does — the host aligner for reads the ladder could not
+    certify (the reference's exactness rule, not a device fallback),
+    ``WFAGraphError`` when the device score exceeds
+    ``--global-realignment-max-ed``, and the failure ladder. Results of
+    reads after the ladder trips are discarded unused.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+
+from reference.align.wfa_graph import WFAGraph, WFAGraphError, WFAResult
+from reference.core.read_segments import ReadSegment, collapse_read_segments
+from reference.core.reference_genome import ReferenceGenome
+from reference.core.variants import Variant, VariantType
+from reference.io.bam import BamRecord, cached_alignment
+from reference.phasing.block_gen import PhaseBlock, filter_out_alignment_record
+from reference.phasing.read_parsing import (
+    GlobalRealignmentConfig, INDEL_QUAL, SNV_QUAL, SV_INDEL_QUAL, TR_QUAL,
+    build_r2q, local_realignment,
+)
+from reference.writers.phase_stats import ReadStats
+
+logger = logging.getLogger(__name__)
+
+USIZE_MAX = 2**63 - 1
+
+_GLOBAL_BASELINE = {
+    VariantType.SNV: SNV_QUAL,
+    VariantType.DELETION: INDEL_QUAL,
+    VariantType.INSERTION: INDEL_QUAL,
+    VariantType.INDEL: INDEL_QUAL,
+    VariantType.SV_DELETION: SV_INDEL_QUAL,
+    VariantType.SV_INSERTION: SV_INDEL_QUAL,
+    VariantType.TANDEM_REPEAT: TR_QUAL,
+}
+
+NOV = 3
+AMB = 2
+
+
+class WfaBlockPack:
+    """Block-level arrays for the native graph builder: the merged
+    (het + hom, position-sorted) variant windows and truncated-allele blobs
+    are constant across a block's reads, so they are packed once. Het
+    entries carry their absolute variant index; homs carry -1."""
+
+    def __init__(self, variant_calls: list[Variant], hom_calls: list[Variant]):
+        # sorted position arrays for the per-read overlap searches
+        self.het_pos = np.fromiter((v.position for v in variant_calls),
+                                   np.int64, len(variant_calls))
+        self.hom_pos = np.fromiter((v.position for v in hom_calls),
+                                   np.int64, len(hom_calls))
+        merged = [(v, i) for i, v in enumerate(variant_calls)
+                  if not v.is_ignored] + \
+                 [(v, -1) for v in hom_calls if not v.is_ignored]
+        merged.sort(key=lambda t: t[0].position)
+        n = len(merged)
+        self.n = n
+        self.pos = np.fromiter((v.position for v, _ in merged), np.int64, n)
+        self.ref_len = np.fromiter((v.ref_len for v, _ in merged), np.int64, n)
+        self.var_index = np.fromiter((i for _, i in merged), np.int32, n)
+        self.a0_is_alt = np.fromiter((v.index_allele0 != 0 for v, _ in merged),
+                                     np.uint8, n)
+        chunks = []
+        self.a0_off = np.zeros(n, np.int64)
+        self.a0_len = np.zeros(n, np.int64)
+        self.a1_off = np.zeros(n, np.int64)
+        self.a1_len = np.zeros(n, np.int64)
+        off = 0
+        for k, (v, _) in enumerate(merged):
+            t0 = v.get_truncated_allele0()
+            t1 = v.get_truncated_allele1()
+            self.a0_off[k] = off
+            self.a0_len[k] = len(t0)
+            chunks.append(t0)
+            off += len(t0)
+            self.a1_off[k] = off
+            self.a1_len[k] = len(t1)
+            chunks.append(t1)
+            off += len(t1)
+        self.blob = np.frombuffer(b"".join(chunks), np.uint8) if off else \
+            np.zeros(1, np.uint8)
+
+
+def _native_global_assign(pack: WfaBlockPack, chrom_seq: bytes,
+                          ref_start: int, ref_end: int, read_align: bytes,
+                          wfa_prune_distance: int, max_edit_distance: int,
+                          alleles: np.ndarray):
+    """Native fast path: build the window graph and align in C++, writing
+    allele assignments for traversed branches into ``alleles``.
+    Returns the WFA score, or None to use the Python path."""
+    from reference.io import native
+    if not native.available():
+        return None
+    built = native.wfa_build(chrom_seq, ref_start, ref_end, pack.pos,
+                             pack.ref_len, pack.var_index, pack.a0_is_alt,
+                             pack.blob, pack.a0_off, pack.a0_len,
+                             pack.a1_off, pack.a1_len)
+    if built is None:
+        return None
+    node_off, node_blob, edge_off, edge_dst, (an, av, aa) = built
+    out = native.wfa_align(node_blob, node_off, edge_dst, edge_off,
+                           read_align, min(wfa_prune_distance, USIZE_MAX),
+                           min(max_edit_distance, USIZE_MAX))
+    if out is None:
+        return None
+    score, traversed = out
+    if score < 0:
+        raise WFAGraphError(max_edit_distance)
+    for k in range(len(an)):
+        if not traversed[an[k]]:
+            continue
+        vi = int(av[k])
+        if vi < 0:
+            continue  # hom branch
+        if alleles[vi] == NOV:
+            alleles[vi] = aa[k]
+        elif alleles[vi] != aa[k]:
+            alleles[vi] = AMB
+    return score
+
+
+def _read_overlaps(read: BamRecord, variant_calls: list[Variant],
+                   hom_calls: list[Variant], wfa_pack: WfaBlockPack | None):
+    """The read's mapped span and the het/hom variants it overlaps:
+    (r2q, base, min_position, max_position, first_overlap, last_overlap,
+    num_overlaps, first_hom_overlap, last_hom_overlap)."""
+    r2q, base = build_r2q(read)
+    mapped = np.flatnonzero(r2q >= 0)
+    assert mapped.size > 0
+    min_position = base + int(mapped[0])
+    max_position = base + int(mapped[-1])
+
+    if wfa_pack is not None:
+        lo = int(np.searchsorted(wfa_pack.het_pos, min_position, "left"))
+        hi = int(np.searchsorted(wfa_pack.het_pos, max_position, "right"))
+        first_overlap = lo if hi > lo else None
+        last_overlap = hi
+        num_overlaps = hi - lo
+        hlo = int(np.searchsorted(wfa_pack.hom_pos, min_position, "left"))
+        hhi = int(np.searchsorted(wfa_pack.hom_pos, max_position, "right"))
+        first_hom_overlap = hlo if hhi > hlo else 0
+        last_hom_overlap = hhi
+    else:
+        first_overlap = None
+        last_overlap = 0
+        num_overlaps = 0
+        for i, variant in enumerate(variant_calls):
+            if min_position <= variant.position <= max_position:
+                if first_overlap is None:
+                    first_overlap = i
+                last_overlap = i + 1
+                num_overlaps += 1
+        first_hom_overlap = None
+        last_hom_overlap = 0
+        for i, variant in enumerate(hom_calls):
+            if min_position <= variant.position <= max_position:
+                if first_hom_overlap is None:
+                    first_hom_overlap = i
+                last_hom_overlap = i + 1
+        if first_hom_overlap is None:
+            first_hom_overlap = 0
+    return (r2q, base, min_position, max_position, first_overlap,
+            last_overlap, num_overlaps, first_hom_overlap, last_hom_overlap)
+
+
+def _mark_traversed(alleles: np.ndarray, wfa_result: WFAResult,
+                    node_to_alleles: dict, first_overlap: int) -> None:
+    """Allele assignments of the traversed branch nodes; a variant reached
+    with two different alleles becomes Ambiguous."""
+    for node_index in wfa_result.traversed_nodes:
+        for var_index, allele_assignment in node_to_alleles.get(
+                node_index, []):
+            ci = first_overlap + var_index
+            if alleles[ci] == NOV:
+                alleles[ci] = allele_assignment
+            elif alleles[ci] != allele_assignment:
+                alleles[ci] = AMB
+
+
+def _global_quals(alleles: np.ndarray, variant_calls: list[Variant],
+                  stats: ReadStats) -> np.ndarray:
+    """2× baseline qualities of the assigned alleles, counted in ``stats``."""
+    num_variants = len(variant_calls)
+    quals = np.zeros(num_variants, dtype=np.uint8)
+    for i in range(num_variants):
+        a = alleles[i]
+        vt = variant_calls[i].variant_type
+        vt_index = int(vt)
+        if a == NOV:
+            continue
+        if a == AMB:
+            stats.failed_matches[vt_index] += 1
+            continue
+        quals[i] = 2 * _GLOBAL_BASELINE[vt]  # global quals are 2× baseline
+        stats.inexact_matches[vt_index] += 1  # all global matches count inexact
+        if a == 0:
+            stats.allele0_matches[vt_index] += 1
+        else:
+            stats.allele1_matches[vt_index] += 1
+        stats.num_alleles += 1
+    stats.global_aligned = 1
+    return quals
+
+
+def global_realignment(phase_problem: PhaseBlock, read: BamRecord,
+                       variant_calls: list[Variant], hom_calls: list[Variant],
+                       reference_genome: ReferenceGenome,
+                       wfa_prune_distance: int, global_max_edit_distance: int,
+                       wfa_pack: WfaBlockPack | None = None
+                       ) -> tuple[np.ndarray, np.ndarray, ReadStats, int]:
+    """(ref: read_parsing.rs:652-867) on the host aligner. Raises
+    WFAGraphError on max-ED."""
+    num_variants = len(variant_calls)
+    stats = ReadStats()
+
+    (r2q, base, min_position, max_position, first_overlap, last_overlap,
+     num_overlaps, first_hom_overlap, last_hom_overlap) = _read_overlaps(
+        read, variant_calls, hom_calls, wfa_pack)
+
+    if num_overlaps == 0:
+        stats.skipped_reads = 1
+        return (np.zeros(0, np.uint8), np.zeros(0, np.uint8), stats, USIZE_MAX)
+
+    read_sequence = read.query_sequence()
+    read_start = int(r2q[min_position - base])
+    read_end = int(r2q[max_position - base])
+    read_align = read_sequence[read_start:read_end + 1]
+
+    chrom_seq = reference_genome.get_full_chromosome(phase_problem.chrom)
+    alleles = np.full(num_variants, NOV, dtype=np.uint8)
+    score = None
+    if wfa_pack is not None:
+        # fast path: block-level pack → native build + align, zero per-read
+        # python graph work (the C++ builder window-filters identically)
+        score = _native_global_assign(
+            wfa_pack, chrom_seq, min_position, max_position + 1, read_align,
+            wfa_prune_distance, global_max_edit_distance, alleles)
+    if score is None:
+        wfa_graph, node_to_alleles = WFAGraph.from_reference_variants_with_hom(
+            chrom_seq,
+            variant_calls[first_overlap:last_overlap],
+            hom_calls[first_hom_overlap:last_hom_overlap],
+            min_position, max_position + 1,
+            global_max_edit_distance)
+        wfa_result = wfa_graph.edit_distance_with_pruning(
+            read_align, wfa_prune_distance)  # raises on max-ED
+        score = wfa_result.score
+        _mark_traversed(alleles, wfa_result, node_to_alleles, first_overlap)
+
+    quals = _global_quals(alleles, variant_calls, stats)
+    return alleles, quals, stats, score
+
+
+def _finish_groups(read_groups, joint_stats, min_matched_alleles
+                   ) -> tuple[list[ReadSegment], list[ReadSegment], ReadStats]:
+    """Collapse per-name segment groups and split by min_matched_alleles
+    (ref: read_parsing.rs:611-629)."""
+    read_segments: list[ReadSegment] = []
+    phasable_segments: list[ReadSegment] = []
+    for _name, group in read_groups.items():
+        collapsed = collapse_read_segments(group)
+        num_set = collapsed.get_num_set()
+        if num_set >= min_matched_alleles:
+            read_segments.append(collapsed)
+            joint_stats.num_reads += len(group)
+        else:
+            joint_stats.skipped_reads += len(group)
+            if num_set > 0:
+                phasable_segments.append(collapsed)
+    return read_segments, phasable_segments, joint_stats
+
+
+class _Ladder:
+    """Mutable failure-ladder state shared across BAMs of a block
+    (ref: read_parsing.rs:595-600)."""
+
+    def __init__(self, config: GlobalRealignmentConfig):
+        self.config = config
+        self.disabled = False
+        self.failures = 0.0
+        self.total = 0.0
+
+    def record(self, was_local_fallback: bool) -> None:
+        self.failures += 1.0 if was_local_fallback else 0.0
+        self.total += 1.0
+        if (not self.disabled
+                and self.failures >= self.config.global_failure_minimum
+                and self.failures / self.total
+                >= self.config.global_failure_ratio):
+            self.disabled = True
+
+
+def _global_batch_chunk(raw, rec_off, rec_size, phase_problem, variant_calls,
+                        hom_calls, reference_genome, config, wfa_pack,
+                        local_pack, chrom_seq, ladder: _Ladder,
+                        read_groups, joint_stats) -> bool:
+    """Batched dual-mode assignment for one fetched record chunk: one native
+    graph-WFA call over all records (threaded), batched local realignment
+    for the fallbacks, ladder decisions applied host-side in encounter order
+    (the determinism contract, ref: CHANGELOG.md:33-46). Returns False to
+    use the per-read path."""
+    from reference.io import native as native_mod
+
+    het_pos = np.fromiter((v.position for v in variant_calls), np.int64,
+                          len(variant_calls))
+    out = native_mod.wfa_batch(raw, rec_off, rec_size, chrom_seq, het_pos,
+                               wfa_pack, min(config.wfa_prune_distance,
+                                             USIZE_MAX),
+                               min(config.max_edit_distance, USIZE_MAX))
+    if out is None:
+        return False
+    scores, gall = out
+    n = len(rec_off)
+    local_rows: dict[int, tuple[np.ndarray, np.ndarray, int]] = {}
+
+    def run_local(idxs) -> bool:
+        idxs = np.asarray(idxs, dtype=np.int64)
+        if not len(idxs):
+            return True
+        lr = native_mod.realign_block(raw, rec_off[idxs], rec_size[idxs],
+                                      local_pack, SV_INDEL_QUAL)
+        if lr is None:
+            return False
+        la, lq, lnov, lstats = lr
+        nt = lstats[:55].reshape(5, 11)
+        joint_stats.failed_matches += nt[0].astype(np.uint64)
+        joint_stats.exact_matches += nt[1].astype(np.uint64)
+        joint_stats.inexact_matches += nt[2].astype(np.uint64)
+        joint_stats.allele0_matches += nt[3].astype(np.uint64)
+        joint_stats.allele1_matches += nt[4].astype(np.uint64)
+        joint_stats.num_alleles += int(lstats[55])
+        joint_stats.skipped_reads += int(lstats[56])
+        joint_stats.local_aligned += int(lstats[57])
+        for j, idx in enumerate(idxs):
+            local_rows[int(idx)] = (la[j], lq[j], int(lnov[j]))
+        return True
+
+    if not run_local(np.flatnonzero(scores == -1)):
+        return False
+
+    # per-read host path for scratch-overflow records (rare)
+    py_rows: dict[int, tuple] = {}
+    for i in np.flatnonzero(scores == -3):
+        i = int(i)
+        rec = BamRecord.parse(raw[int(rec_off[i]):
+                                  int(rec_off[i]) + int(rec_size[i])].tobytes())
+        try:
+            alleles, quals, rstats, _sc = global_realignment(
+                phase_problem, rec, variant_calls, hom_calls,
+                reference_genome, config.wfa_prune_distance,
+                config.max_edit_distance, wfa_pack=None)
+            py_rows[i] = ("global", alleles, quals, rstats)
+        except WFAGraphError:
+            alleles, quals, rstats = local_realignment(rec, variant_calls,
+                                                       pack=local_pack)
+            py_rows[i] = ("local", alleles, quals, rstats)
+
+    # walk 1: apply the ladder in encounter order; reads after the flipping
+    # read use local for the rest of the block (ref: read_parsing.rs:595-600)
+    if ladder.disabled:
+        flip_at = 0
+    else:
+        flip_at = n
+        for i in range(n):
+            s = int(scores[i])
+            if s == -2:
+                continue  # no het overlap: skipped, no ladder update
+            if s == -3:
+                kind, _a, _q, rstats = py_rows[i]
+                if rstats.skipped_reads == 0:
+                    ladder.record(kind == "local")
+            elif s == -1:
+                if local_rows[i][2] > 0:
+                    ladder.record(True)
+            else:
+                ladder.record(False)
+            if ladder.disabled:
+                flip_at = i + 1
+                break
+
+    # post-flip records all use local (ref: read_parsing.rs:556-558)
+    need_local = [i for i in range(flip_at, n) if i not in local_rows]
+    if not run_local(need_local):
+        return False
+
+    # walk 2: emit segments + global stats in encounter order
+    qual2x = (2 * local_pack.baseline).astype(np.uint8)
+    vt = local_pack.vt_index
+    g_rows = []
+    for i in range(n):
+        use_local = i >= flip_at or int(scores[i]) == -1
+        off = int(rec_off[i])
+        l_name = int(raw[off + 8])
+        name = raw[off + 32:off + 32 + l_name - 1].tobytes().decode()
+        if use_local:
+            la, lq, lnov = local_rows[i]
+            if lnov > 0:
+                read_groups.setdefault(name, []).append(
+                    ReadSegment.new(name, la, lq))
+            continue
+        s = int(scores[i])
+        if s == -2:
+            joint_stats.skipped_reads += 1
+            continue
+        if s == -3:
+            kind, alleles, quals, rstats = py_rows[i]
+            if rstats.skipped_reads == 0:
+                read_groups.setdefault(name, []).append(
+                    ReadSegment.new(name, alleles, quals))
+            joint_stats += rstats
+            continue
+        row = gall[i]
+        quals = np.where(row < 2, qual2x, 0).astype(np.uint8)
+        read_groups.setdefault(name, []).append(
+            ReadSegment.new(name, row, quals))
+        g_rows.append(i)
+
+    if g_rows:
+        G = gall[np.asarray(g_rows)]
+        vt_b = np.broadcast_to(vt, G.shape)
+        np.add.at(joint_stats.failed_matches, vt_b[G == 2], 1)
+        set_mask = G < 2
+        np.add.at(joint_stats.inexact_matches, vt_b[set_mask], 1)
+        np.add.at(joint_stats.allele0_matches, vt_b[G == 0], 1)
+        np.add.at(joint_stats.allele1_matches, vt_b[G == 1], 1)
+        joint_stats.num_alleles += int(set_mask.sum())
+        joint_stats.global_aligned += len(g_rows)
+    return True
+
+
+def load_full_read_segments(phase_problem: PhaseBlock, bam_paths: list[str],
+                            variant_calls: list[Variant],
+                            hom_calls: list[Variant],
+                            reference_genome: ReferenceGenome,
+                            min_matched_alleles: int, min_mapq: int,
+                            config: GlobalRealignmentConfig,
+                            device=None, counters=None
+                            ) -> tuple[list[ReadSegment], list[ReadSegment], ReadStats]:
+    """Dual-mode loading with the failure ladder
+    (ref: read_parsing.rs:520-637). ``--wfa-engine device`` aligns on the
+    torch ``device``, counted in ``counters`` (an `align.wfa_device.WfaCounters`);
+    the host engine uses neither."""
+    if config.wfa_engine == "device":
+        raise ValueError("the reference aligns with the host graph WFA only")
+    from reference.io import native as native_mod
+    from reference.phasing.variant_pack import build_variant_pack
+
+    read_groups: dict[str, list[ReadSegment]] = {}
+    joint_stats = ReadStats()
+    local_pack = build_variant_pack(variant_calls)
+    wfa_pack = WfaBlockPack(variant_calls, hom_calls) \
+        if native_mod.available() else None
+
+    if wfa_pack is not None:
+        ladder = _Ladder(config)
+        chrom_seq = reference_genome.get_full_chromosome(phase_problem.chrom)
+        batched_ok = True
+        for bam_path in bam_paths:
+            bam = cached_alignment(bam_path)
+            chunks = bam.fetch_raw(phase_problem.chrom,
+                                   phase_problem.start,
+                                   phase_problem.end + 1, min_mapq)
+            if chunks is None:
+                batched_ok = False
+                break
+            for raw, rec_off, rec_size in chunks:
+                if not _global_batch_chunk(
+                        raw, rec_off, rec_size, phase_problem,
+                        variant_calls, hom_calls, reference_genome,
+                        config, wfa_pack, local_pack, chrom_seq, ladder,
+                        read_groups, joint_stats):
+                    batched_ok = False
+                    break
+            if not batched_ok:
+                break
+        if batched_ok:
+            return _finish_groups(read_groups, joint_stats,
+                                  min_matched_alleles)
+        read_groups = {}
+        joint_stats = ReadStats()
+
+    global_disabled = False
+    num_global_failures = 0.0
+    total_parsed = 0.0
+
+    for bam_path in bam_paths:
+        bam = cached_alignment(bam_path)
+        for read in bam.fetch(phase_problem.chrom, phase_problem.start,
+                              phase_problem.end + 1):
+            if filter_out_alignment_record(read, min_mapq):
+                continue
+            if global_disabled:
+                alleles, quals, read_stats = local_realignment(
+                    read, variant_calls, pack=local_pack)
+            else:
+                try:
+                    alleles, quals, read_stats, _score = global_realignment(
+                        phase_problem, read, variant_calls, hom_calls,
+                        reference_genome, config.wfa_prune_distance,
+                        config.max_edit_distance, wfa_pack=wfa_pack)
+                except WFAGraphError:
+                    logger.debug("Reverting to local re-alignment for %s...",
+                                 read.read_name)
+                    alleles, quals, read_stats = local_realignment(
+                        read, variant_calls, pack=local_pack)
+
+            if read_stats.skipped_reads == 0:
+                read_groups.setdefault(read.read_name, []).append(
+                    ReadSegment.new(read.read_name, alleles, quals))
+                assert read_stats.total_aligned() == 1
+                num_global_failures += read_stats.local_aligned
+                total_parsed += 1.0
+                if (not global_disabled
+                        and num_global_failures >= config.global_failure_minimum
+                        and num_global_failures / total_parsed
+                        >= config.global_failure_ratio):
+                    global_disabled = True
+                    logger.info(
+                        "B#%d Detected broad global realignment failure, "
+                        "reverting to local for the rest of the block.",
+                        phase_problem.block_index)
+            joint_stats += read_stats
+
+    return _finish_groups(read_groups, joint_stats, min_matched_alleles)
+
+
+# ---------------------------------------------------------------------------
+# --wfa-engine device
+
+def read_window(phase_problem: PhaseBlock, read: BamRecord,
+                variant_calls: list[Variant], hom_calls: list[Variant],
+                reference_genome: ReferenceGenome, max_edit_distance: int,
+                wfa_pack: WfaBlockPack | None = None):
+    """The read's aligned subsequence and the window graph over the het and
+    hom variants its mapping overlaps: (read_align, graph, node_to_alleles,
+    first het overlap), or None when it overlaps no het
+    (ref: read_parsing.rs:652-720)."""
+    (r2q, base, min_position, max_position, first_overlap, last_overlap,
+     num_overlaps, first_hom_overlap, last_hom_overlap) = _read_overlaps(
+        read, variant_calls, hom_calls, wfa_pack)
+    if num_overlaps == 0:
+        return None
+
+    read_sequence = read.query_sequence()
+    read_start = int(r2q[min_position - base])
+    read_end = int(r2q[max_position - base])
+    read_align = read_sequence[read_start:read_end + 1]
+
+    chrom_seq = reference_genome.get_full_chromosome(phase_problem.chrom)
+    wfa_graph, node_to_alleles = WFAGraph.from_reference_variants_with_hom(
+        chrom_seq,
+        variant_calls[first_overlap:last_overlap],
+        hom_calls[first_hom_overlap:last_hom_overlap],
+        min_position, max_position + 1,
+        max_edit_distance)
+    return read_align, wfa_graph, node_to_alleles, first_overlap
+
+
+def _device_assign(window, aligned, variant_calls: list[Variant],
+                   wfa_prune_distance: int, global_max_edit_distance: int
+                   ) -> tuple[np.ndarray, np.ndarray, ReadStats, int]:
+    """Allele assignment of one read from its window and its band-ladder
+    result (None: uncertified, the host aligner decides). Raises
+    WFAGraphError on max-ED."""
+    stats = ReadStats()
+    if window is None:
+        stats.skipped_reads = 1
+        return (np.zeros(0, np.uint8), np.zeros(0, np.uint8), stats, USIZE_MAX)
+    read_align, wfa_graph, node_to_alleles, first_overlap = window
+    if aligned is not None:
+        dev_score, traversed = aligned
+        if dev_score > global_max_edit_distance:
+            raise WFAGraphError(global_max_edit_distance)
+        wfa_result = WFAResult(dev_score, traversed)
+    else:
+        wfa_result = wfa_graph.edit_distance_with_pruning(
+            read_align, wfa_prune_distance)  # raises on max-ED
+    alleles = np.full(len(variant_calls), NOV, dtype=np.uint8)
+    _mark_traversed(alleles, wfa_result, node_to_alleles, first_overlap)
+    quals = _global_quals(alleles, variant_calls, stats)
+    return alleles, quals, stats, wfa_result.score
