@@ -39,6 +39,7 @@ import torch
 
 from hiphase_tpu_torch import kernels
 from hiphase_tpu_torch.phasing.beam import _check
+from hiphase_tpu_torch.tracing import OFF, Recorder
 
 INF = 1 << 20
 
@@ -683,7 +684,8 @@ def _launch_groups(need: np.ndarray, budget: int | None
 
 def align_pairs_device(pairs: list[tuple], device: torch.device,
                        h_ladder=H_LADDER,
-                       counters: WfaCounters | None = None):
+                       counters: WfaCounters | None = None,
+                       spans: Recorder = OFF):
     """Align a batch of (graph, read) pairs on ``device``, each read
     against its own graph, climbing the band ladder together.
 
@@ -693,10 +695,16 @@ def align_pairs_device(pairs: list[tuple], device: torch.device,
     the host aligner for those. Scores above the graph's max edit distance
     are returned as-is; the caller applies the reference's max-ED failure
     semantics. The results are those of aligning each pair alone.
+
+    The whole call is a span ``wfa.ladder`` of ``spans``: linearising and
+    packing the graphs, then each rung's sizing, launches and unpacking; a
+    rung's wait for the scratch lock is a span ``wfa.scratch_lock`` and its
+    wait for the results a span ``wfa.device_wait``.
     """
-    batch = PairBatch([_linearized(g) for g, _r in pairs],
-                      [r for _g, r in pairs], list(range(len(pairs))))
-    return _ladder(batch, device, h_ladder, counters)
+    with spans.span("wfa.ladder"):
+        batch = PairBatch([_linearized(g) for g, _r in pairs],
+                          [r for _g, r in pairs], list(range(len(pairs))))
+        return _ladder(batch, device, h_ladder, counters, spans)
 
 
 def align_reads_device(graph, reads: list[bytes], device: torch.device,
@@ -713,8 +721,22 @@ def _linearized(graph) -> _Graph:
     return _graph_record(*arrays, n_nodes, ga.last_node, ga.c_end, ga.spread)
 
 
+@contextlib.contextmanager
+def _scratch_lock(on_card: bool, spans: Recorder):
+    """Hold `_SCRATCH_LOCK` on a CUDA device; the wait for it is a span."""
+    if not on_card:
+        yield
+        return
+    with spans.span("wfa.scratch_lock"):
+        _SCRATCH_LOCK.acquire()
+    try:
+        yield
+    finally:
+        _SCRATCH_LOCK.release()
+
+
 def _ladder(batch: PairBatch, device: torch.device, h_ladder,
-            counters: WfaCounters | None):
+            counters: WfaCounters | None, spans: Recorder = OFF):
     on_card = device.type != "cpu"
     results: list = [None] * batch.n
     pending = np.arange(batch.n)
@@ -736,7 +758,7 @@ def _ladder(batch: PairBatch, device: torch.device, h_ladder,
                      out[5 * n:].view(torch.bool))
             # ladders of other threads size their scratch from the same free
             # memory: one sizes and allocates at a time
-            with _SCRATCH_LOCK if on_card else contextlib.nullcontext():
+            with _scratch_lock(on_card, spans):
                 need = batch.need_bytes(H)[pending]
                 groups = _launch_groups(
                     need, _free_bytes(device) // 2 if on_card else None)
@@ -753,7 +775,8 @@ def _ladder(batch: PairBatch, device: torch.device, h_ladder,
                     calls += 1
                     pair_launches += hi - lo
                     max_pairs = max(max_pairs, hi - lo)
-            host = out.cpu().numpy()
+            with spans.span("wfa.device_wait"):
+                host = out.cpu().numpy()
             score = host[:4 * n].view(np.int32)
             trav = host[5 * n:]
             toff = _exclusive(batch.N[pending])

@@ -53,7 +53,7 @@ from collections.abc import Sequence
 
 import torch
 
-from hiphase_tpu_torch import kernels
+from hiphase_tpu_torch import kernels, tracing
 from hiphase_tpu_torch.device import resolve_devices
 from hiphase_tpu_torch.io import native
 from hiphase_tpu_torch.parallel import engine_select
@@ -341,6 +341,10 @@ def _run(args, argv, device, devices, choice, background) -> int:
                          "sample names")
 
     global_config = global_realignment_config(args)
+    # the run's spans; their intervals too while a profiler records this
+    # thread (the pool's threads follow this decision: the flag is per
+    # thread)
+    spans = tracing.Recorder(log=torch._C._autograd._profiler_enabled())
     wfa_device = wfa_counters = None
     if global_config is not None and global_config.wfa_engine == "device":
         from hiphase_tpu_torch.align.wfa_device import WfaCounters
@@ -357,7 +361,7 @@ def _run(args, argv, device, devices, choice, background) -> int:
             devs, beam_width=args.beam_width, batch_size=args.batch_size,
             min_queue_size=args.phase_min_queue_size,
             queue_increment=args.phase_queue_increment,
-            compute_estimates=args.stats_file is not None)
+            compute_estimates=args.stats_file is not None, spans=spans)
 
     solver = None
     if engine == "cuda":
@@ -368,7 +372,7 @@ def _run(args, argv, device, devices, choice, background) -> int:
             beam_width=args.beam_width, batch_size=args.batch_size,
             min_queue_size=args.phase_min_queue_size,
             queue_increment=args.phase_queue_increment, threads=args.threads,
-            compute_estimates=args.stats_file is not None)
+            compute_estimates=args.stats_file is not None, spans=spans)
         if background is not None:
             solver = DeferredUpgradeSolver(solver, background, device_solver,
                                            started=background.started)
@@ -436,10 +440,6 @@ def _run(args, argv, device, devices, choice, background) -> int:
     # blocks each engine solved (a deferred 'auto' run counts its own)
     engine_blocks = {engine: 0}
     total_variants = 0
-    # cumulative per-stage busy time (thread-summed; stages overlap)
-    stage_s = {"block_gen": 0.0, "prepare": 0.0, "solve": 0.0,
-               "writer": 0.0}
-    stage_lock = threading.Lock()
     logger.info("Phase block generation starting...")
 
     def should_solve(block):
@@ -449,7 +449,6 @@ def _run(args, argv, device, devices, choice, background) -> int:
 
     def write_result(phase_result, haplotag_result):
         nonlocal results_received, total_variants
-        t0 = time.perf_counter()
         total_variants += phase_result.phase_block.num_variants
         results_received += 1
         if stats_writer is not None:
@@ -466,7 +465,6 @@ def _run(args, argv, device, devices, choice, background) -> int:
                 writer.write_phase_block(haplotag_result)
             else:
                 writer.write_dummy_block(phase_result.phase_block.block_index)
-        stage_s["writer"] += time.perf_counter() - t0
         if results_received % 100 == 0:
             elapsed = time.time() - start_time
             logger.info("Received results for %d phase blocks: %.4f "
@@ -487,7 +485,8 @@ def _run(args, argv, device, devices, choice, background) -> int:
             if item is None:
                 return
             try:
-                write_result(*item)
+                with spans.span("writer"):
+                    write_result(*item)
             except BaseException as e:  # re-raised by emit / finish_writes
                 writer_errors.append(e)
                 while write_queue.get() is not None:
@@ -507,9 +506,8 @@ def _run(args, argv, device, devices, choice, background) -> int:
         it = iter(iterator)
         i = 0
         while True:
-            t0 = time.perf_counter()
-            block = next(it, None)
-            stage_s["block_gen"] += time.perf_counter() - t0
+            with spans.span("block_gen"):
+                block = next(it, None)
             if block is None or i >= args.skip + args.take:
                 return
             if i >= args.skip:
@@ -521,17 +519,12 @@ def _run(args, argv, device, devices, choice, background) -> int:
             from hiphase_tpu_torch.parallel.orchestrator import iter_prepared
 
             def prepare_fn(block):
-                t0 = time.perf_counter()
-                try:
+                with spans.span("prepare"):
                     return prepare_block(
                         block, args.vcfs, sample_to_bams[block.sample_name],
                         reference_genome, args.reference_buffer,
                         args.min_matched_alleles, args.min_mapping_quality,
-                        global_config, wfa_device, wfa_counters)
-                finally:
-                    dt = time.perf_counter() - t0
-                    with stage_lock:  # float += is not atomic across threads
-                        stage_s["prepare"] += dt
+                        global_config, wfa_device, wfa_counters, spans)
 
             # multi-host: every rank walks the same global stream and solves
             # its round-robin share; the other ranks' blocks pass as 'skip',
@@ -554,22 +547,20 @@ def _run(args, argv, device, devices, choice, background) -> int:
 
             for kind, item in iter_prepared(
                     windowed(block_iterator), prepare_fn, classify,
-                    threads=args.threads):
+                    threads=args.threads, spans=spans):
                 if kind == "unphased" and is_writer_host:
                     emit(*create_unphased_result(item))
                 elif kind == "solve":
-                    t0 = time.perf_counter()
-                    results = solver.submit(item)
-                    stage_s["solve"] += time.perf_counter() - t0
+                    with spans.span("solve"):
+                        results = solver.submit(item)
                     if not isinstance(solver, DeferredUpgradeSolver):
                         engine_blocks[engine] += 1
                     publish(results)
                 if replay is not None:
                     for pr, hr in replay.tick():
                         emit(pr, hr)
-            t0 = time.perf_counter()
-            results = solver.drain()
-            stage_s["solve"] += time.perf_counter() - t0
+            with spans.span("solve"):
+                results = solver.drain()
             publish(results)
             if replay is not None:
                 for pr, hr in replay.finish():
@@ -650,8 +641,7 @@ def _run(args, argv, device, devices, choice, background) -> int:
         dev_solver = solver
     LAST_RUN_STATS.update(engine=engine, engine_rates=choice.rates,
                           engine_blocks=engine_blocks, engine_upgrade=upgrade,
-                          blocks=results_received, variants=total_variants,
-                          phasing_seconds=elapsed)
+                          blocks=results_received, variants=total_variants)
     if choice.rates:
         LAST_RUN_STATS["engine_rating"] = {
             "seconds": choice.seconds,
@@ -665,8 +655,7 @@ def _run(args, argv, device, devices, choice, background) -> int:
             "ended_seconds": background.ended_at - background.started,
             "late_blocks": solver.late_blocks}
     if native_solver is not None:
-        LAST_RUN_STATS.update(node_expansions=native_solver.total_expansions,
-                              solve_seconds=native_solver.solve_seconds)
+        LAST_RUN_STATS["node_expansions"] = native_solver.total_expansions
     if dev_solver is not None:
         LAST_RUN_STATS.update(
             device=_device_name(dev_solver.device),
@@ -684,8 +673,16 @@ def _run(args, argv, device, devices, choice, background) -> int:
         after = kernels.launch_counts()
         LAST_RUN_STATS["kernel_launches"] = {
             k: after[k] - launches_before[k] for k in after}
+    # the four stages (prepare summed over its threads; stages overlap)
+    totals = spans.totals()
     LAST_RUN_STATS["stage_seconds"] = {
-        k: round(v, 3) for k, v in stage_s.items()}
+        k: round(totals.get(k, {"wall": 0.0})["wall"], 3)
+        for k in ("block_gen", "prepare", "solve", "writer")}
+    LAST_RUN_STATS["spans"] = totals
+    trace = spans.trace()
+    if trace is not None:
+        LAST_RUN_STATS["trace"] = trace
+    logger.debug("Spans (wall/cpu s ×n): %s", spans.summary())
     return 0
 
 

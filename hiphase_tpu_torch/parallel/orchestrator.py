@@ -35,6 +35,7 @@ from hiphase_tpu_torch.parallel.sharding import (
 from hiphase_tpu_torch.phasing.beam import (
     PACK_PAD, assign_slots, max_hets_for, pack_inputs, tensorize_block,
 )
+from hiphase_tpu_torch.tracing import OFF, Recorder
 
 # slot-bucket ladder (padded concurrent-read capacities); beyond it the
 # block goes to the host A* oracle
@@ -61,10 +62,11 @@ def _pad_width(w: int) -> int:
 
 def _stats_from_beam(data: BlockData, h1, h2, cost: int, pruned: int,
                      estimate: bool = False, min_queue_size: int = 1000,
-                     queue_increment: int = 3) -> PhaseStats:
+                     queue_increment: int = 3,
+                     spans: Recorder = OFF) -> PhaseStats:
     """The block's PhaseStats in the host A* oracle's units, which the
     --stats-file reports (`phaser.beam_phase_stats`), and with ``estimate``
-    the oracle's heuristic estimate."""
+    the oracle's heuristic estimate (span ``solve.estimate``)."""
     estimated = None
     if estimate:
         # --stats-file semantics: estimated_cost is the root value of the
@@ -72,10 +74,11 @@ def _stats_from_beam(data: BlockData, h1, h2, cost: int, pruned: int,
         from hiphase_tpu_torch.phasing.astar import (
             MAX_SEGMENT_SIZE, _BlockReads, calculate_astar_heuristic,
         )
-        reads = _BlockReads(data.read_segments, len(data.variants))
-        heuristics, _bad = calculate_astar_heuristic(
-            len(data.variants), MAX_SEGMENT_SIZE, reads, min_queue_size,
-            queue_increment, [v.is_ignored for v in data.variants])
+        with spans.span("solve.estimate"):
+            reads = _BlockReads(data.read_segments, len(data.variants))
+            heuristics, _bad = calculate_astar_heuristic(
+                len(data.variants), MAX_SEGMENT_SIZE, reads, min_queue_size,
+                queue_increment, [v.is_ignored for v in data.variants])
         estimated = heuristics[0]
     return beam_phase_stats(data, h1, h2, cost, pruned, estimated,
                             oracle_units=True)
@@ -106,11 +109,13 @@ class BatchedDeviceSolver:
     def __init__(self, device: torch.device | Sequence[torch.device],
                  beam_width: int | None = None, batch_size: int = 32,
                  min_queue_size: int = 1000, queue_increment: int = 3,
-                 tile: int = TILE, compute_estimates: bool = False):
+                 tile: int = TILE, compute_estimates: bool = False,
+                 spans: Recorder = OFF):
         self.devices = ((device,) if isinstance(device, torch.device)
                         else tuple(device))
         self.device = self.devices[0]
         self.compute_estimates = compute_estimates
+        self.spans = spans
         # default: solve once at the full queue-size width; an explicit
         # smaller beam_width enables the fast-then-escalate schedule
         self.full_width = _pad_width(min_queue_size)
@@ -187,7 +192,8 @@ class BatchedDeviceSolver:
         """Wait for a dispatched batch (one stats and one haplotype copy to
         the host a chunk) and finalize it; blocks that aren't provably
         optimal at the fast width re-enter at the full width."""
-        (cost, _hets, pruned), (h1a, h2a) = gather_chunks(job.chunks)
+        with self.spans.span("solve.beam_wait"):
+            (cost, _hets, pruned), (h1a, h2a) = gather_chunks(job.chunks)
 
         out = []
         for i, p in enumerate(job.pending):
@@ -208,7 +214,8 @@ class BatchedDeviceSolver:
                                      blk_pruned,
                                      estimate=self.compute_estimates,
                                      min_queue_size=self.min_queue_size,
-                                     queue_increment=self.queue_increment)
+                                     queue_increment=self.queue_increment,
+                                     spans=self.spans)
             out.append(finalize_block(p.data, bh1, bh2, stats))
         return out
 
@@ -229,10 +236,11 @@ class BatchedDeviceSolver:
 
 
 def iter_prepared(block_iterator, prepare_fn, classify,
-                  threads: int = 1, window: int = 40):
+                  threads: int = 1, window: int = 40, spans: Recorder = OFF):
     """Yield (kind, item) per block preserving stream order, preparing up
     to ``window × threads`` blocks ahead on a pool (the reference's
-    40×threads in-flight backpressure, ref: main.rs:328).
+    40×threads in-flight backpressure, ref: main.rs:328); the caller's
+    waits for a prepared block are spans ``prepared_wait``.
 
     ``classify(block)`` returns 'solve' (item = prepare_fn(block)) or
     another kind (item = the block itself)."""
@@ -242,8 +250,13 @@ def iter_prepared(block_iterator, prepare_fn, classify,
             yield (kind, prepare_fn(block) if kind == "solve" else block)
         return
 
+    def result(future):
+        with spans.span("prepared_wait"):
+            return future.result()
+
     max_inflight = window * threads
-    with ThreadPoolExecutor(max_workers=threads) as pool:
+    with ThreadPoolExecutor(max_workers=threads,
+                            thread_name_prefix="prepare") as pool:
         inflight = []  # list of (kind, future-or-block)
         for block in block_iterator:
             kind = classify(block)
@@ -253,6 +266,6 @@ def iter_prepared(block_iterator, prepare_fn, classify,
                 inflight.append((kind, block))
             while len(inflight) >= max_inflight:
                 kind, item = inflight.pop(0)
-                yield (kind, item.result() if kind == "solve" else item)
+                yield (kind, result(item) if kind == "solve" else item)
         for kind, item in inflight:
-            yield (kind, item.result() if kind == "solve" else item)
+            yield (kind, result(item) if kind == "solve" else item)

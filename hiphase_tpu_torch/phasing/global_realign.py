@@ -41,6 +41,7 @@ from hiphase_tpu_torch.phasing.read_parsing import (
     GlobalRealignmentConfig, INDEL_QUAL, SNV_QUAL, SV_INDEL_QUAL, TR_QUAL,
     build_r2q, local_realignment,
 )
+from hiphase_tpu_torch.tracing import OFF
 from hiphase_tpu_torch.writers.phase_stats import ReadStats
 
 logger = logging.getLogger(__name__)
@@ -458,17 +459,18 @@ def load_full_read_segments(phase_problem: PhaseBlock, bam_paths: list[str],
                             reference_genome: ReferenceGenome,
                             min_matched_alleles: int, min_mapq: int,
                             config: GlobalRealignmentConfig,
-                            device=None, counters=None
+                            device=None, counters=None, spans=OFF
                             ) -> tuple[list[ReadSegment], list[ReadSegment], ReadStats]:
     """Dual-mode loading with the failure ladder
     (ref: read_parsing.rs:520-637). ``--wfa-engine device`` aligns on the
-    torch ``device``, counted in ``counters`` (an `align.wfa_device.WfaCounters`);
-    the host engine uses neither."""
+    torch ``device``, counted in ``counters`` (an `align.wfa_device.WfaCounters`),
+    its parts timed as spans of ``spans`` (a `tracing.Recorder`); the host
+    engine uses none of them."""
     if config.wfa_engine == "device":
         return _load_full_read_segments_device(
             phase_problem, bam_paths, variant_calls, hom_calls,
             reference_genome, min_matched_alleles, min_mapq, config, device,
-            counters)
+            counters, spans)
     from hiphase_tpu_torch.io import native as native_mod
     from hiphase_tpu_torch.phasing.variant_pack import build_variant_pack
 
@@ -538,7 +540,8 @@ def load_full_read_segments(phase_problem: PhaseBlock, bam_paths: list[str],
                 num_global_failures += read_stats.local_aligned
                 total_parsed += 1.0
                 if (not global_disabled
-                        and num_global_failures >= config.global_failure_minimum
+                        and num_global_failures
+                        >= config.global_failure_minimum
                         and num_global_failures / total_parsed
                         >= config.global_failure_ratio):
                     global_disabled = True
@@ -611,75 +614,80 @@ def _device_assign(window, aligned, variant_calls: list[Variant],
 def _load_full_read_segments_device(phase_problem, bam_paths, variant_calls,
                                     hom_calls, reference_genome,
                                     min_matched_alleles, min_mapq, config,
-                                    device, counters):
+                                    device, counters, spans):
     """``--wfa-engine device``: pass 1 builds every read's window and aligns
     all windows of the block in one batched band ladder; pass 2 walks the
-    reads in BAM order exactly as the per-read path does."""
+    reads in BAM order exactly as the per-read path does. Spans: pass 1's
+    windows ``prepare.windows``, the ladder ``wfa.ladder`` (and its waits),
+    pass 2 ``prepare.assign``."""
     from hiphase_tpu_torch.align.wfa_device import align_pairs_device
     from hiphase_tpu_torch.io import native as native_mod
     from hiphase_tpu_torch.phasing.variant_pack import build_variant_pack
 
-    read_groups: dict[str, list[ReadSegment]] = {}
-    joint_stats = ReadStats()
-    local_pack = build_variant_pack(variant_calls)
-    wfa_pack = WfaBlockPack(variant_calls, hom_calls) \
-        if native_mod.available() else None
-
     # pass 1: windows of every read, then one ladder over all of them
     reads, windows = [], []
-    for bam_path in bam_paths:
-        bam = cached_alignment(bam_path)
-        for read in bam.fetch(phase_problem.chrom, phase_problem.start,
-                              phase_problem.end + 1):
-            if filter_out_alignment_record(read, min_mapq):
-                continue
-            reads.append(read)
-            windows.append(read_window(
-                phase_problem, read, variant_calls, hom_calls,
-                reference_genome, config.max_edit_distance, wfa_pack))
+    with spans.span("prepare.windows"):
+        local_pack = build_variant_pack(variant_calls)
+        wfa_pack = WfaBlockPack(variant_calls, hom_calls) \
+            if native_mod.available() else None
+        for bam_path in bam_paths:
+            bam = cached_alignment(bam_path)
+            for read in bam.fetch(phase_problem.chrom, phase_problem.start,
+                                  phase_problem.end + 1):
+                if filter_out_alignment_record(read, min_mapq):
+                    continue
+                reads.append(read)
+                windows.append(read_window(
+                    phase_problem, read, variant_calls, hom_calls,
+                    reference_genome, config.max_edit_distance, wfa_pack))
     with_window = [i for i, w in enumerate(windows) if w is not None]
     aligned = [None] * len(reads)
     if with_window:
         got = align_pairs_device(
             [(windows[i][1], windows[i][0]) for i in with_window], device,
-            counters=counters)
+            counters=counters, spans=spans)
         for i, r in zip(with_window, got):
             aligned[i] = r
 
     # pass 2: the failure ladder in encounter order
-    global_disabled = False
-    num_global_failures = 0.0
-    total_parsed = 0.0
-    for read, window, result in zip(reads, windows, aligned):
-        if global_disabled:
-            alleles, quals, read_stats = local_realignment(
-                read, variant_calls, pack=local_pack)
-        else:
-            try:
-                alleles, quals, read_stats, _score = _device_assign(
-                    window, result, variant_calls, config.wfa_prune_distance,
-                    config.max_edit_distance)
-            except WFAGraphError:
-                logger.debug("Reverting to local re-alignment for %s...",
-                             read.read_name)
+    with spans.span("prepare.assign"):
+        read_groups: dict[str, list[ReadSegment]] = {}
+        joint_stats = ReadStats()
+        global_disabled = False
+        num_global_failures = 0.0
+        total_parsed = 0.0
+        for read, window, result in zip(reads, windows, aligned):
+            if global_disabled:
                 alleles, quals, read_stats = local_realignment(
                     read, variant_calls, pack=local_pack)
+            else:
+                try:
+                    alleles, quals, read_stats, _score = _device_assign(
+                        window, result, variant_calls,
+                        config.wfa_prune_distance, config.max_edit_distance)
+                except WFAGraphError:
+                    logger.debug("Reverting to local re-alignment for %s...",
+                                 read.read_name)
+                    alleles, quals, read_stats = local_realignment(
+                        read, variant_calls, pack=local_pack)
 
-        if read_stats.skipped_reads == 0:
-            read_groups.setdefault(read.read_name, []).append(
-                ReadSegment.new(read.read_name, alleles, quals))
-            assert read_stats.total_aligned() == 1
-            num_global_failures += read_stats.local_aligned
-            total_parsed += 1.0
-            if (not global_disabled
-                    and num_global_failures >= config.global_failure_minimum
-                    and num_global_failures / total_parsed
-                    >= config.global_failure_ratio):
-                global_disabled = True
-                logger.info(
-                    "B#%d Detected broad global realignment failure, "
-                    "reverting to local for the rest of the block.",
-                    phase_problem.block_index)
-        joint_stats += read_stats
+            if read_stats.skipped_reads == 0:
+                read_groups.setdefault(read.read_name, []).append(
+                    ReadSegment.new(read.read_name, alleles, quals))
+                assert read_stats.total_aligned() == 1
+                num_global_failures += read_stats.local_aligned
+                total_parsed += 1.0
+                if (not global_disabled
+                        and num_global_failures
+                        >= config.global_failure_minimum
+                        and num_global_failures / total_parsed
+                        >= config.global_failure_ratio):
+                    global_disabled = True
+                    logger.info(
+                        "B#%d Detected broad global realignment failure, "
+                        "reverting to local for the rest of the block.",
+                        phase_problem.block_index)
+            joint_stats += read_stats
 
-    return _finish_groups(read_groups, joint_stats, min_matched_alleles)
+        return _finish_groups(read_groups, joint_stats,
+                              min_matched_alleles)

@@ -11,8 +11,6 @@ is bit-identical to the device engine's.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
 from hiphase_tpu_torch.io import native
@@ -20,6 +18,7 @@ from hiphase_tpu_torch.phasing.astar import astar_solver
 from hiphase_tpu_torch.phasing.phaser import BlockData, finalize_block
 from hiphase_tpu_torch.parallel.orchestrator import _pad_width, _stats_from_beam
 from hiphase_tpu_torch.phasing.beam import max_hets_for
+from hiphase_tpu_torch.tracing import OFF, Recorder
 
 # Escalation schedule: every block first solves at this width; blocks whose
 # result is not provably optimal re-solve at the full queue-size width.
@@ -32,7 +31,8 @@ class NativeBeamSolver:
 
     def __init__(self, beam_width: int | None = None, batch_size: int = 32,
                  min_queue_size: int = 1000, queue_increment: int = 3,
-                 threads: int = 2, compute_estimates: bool = False):
+                 threads: int = 2, compute_estimates: bool = False,
+                 spans: Recorder = OFF):
         # widths as the device solver's: an explicit --beam-width above the
         # queue floor raises the full width too
         self.full_width = _pad_width(min_queue_size)
@@ -45,10 +45,10 @@ class NativeBeamSolver:
         self.queue_increment = queue_increment
         self.threads = max(threads, 1)
         self.compute_estimates = compute_estimates
+        self.spans = spans
         self.batch_cap = max(batch_size, 1)
         self._pending: list[BlockData] = []
         self.total_expansions = 0
-        self.solve_seconds = 0.0
 
     def _max_nv(self) -> int:
         # ranking-key capacity at the full width (see hn_beam_solve_batch)
@@ -76,7 +76,6 @@ class NativeBeamSolver:
         pending, self._pending = self._pending, []
         if not pending:
             return []
-        t0 = time.perf_counter()
 
         nv = np.array([len(d.variants) for d in pending], dtype=np.int32)
         skip_off = np.zeros(len(pending) + 1, dtype=np.int64)
@@ -127,7 +126,7 @@ class NativeBeamSolver:
                                      int(pruned[i]),
                                      estimate=self.compute_estimates,
                                      min_queue_size=self.min_queue_size,
-                                     queue_increment=self.queue_increment)
+                                     queue_increment=self.queue_increment,
+                                     spans=self.spans)
             results.append(finalize_block(d, bh1, bh2, stats))
-        self.solve_seconds += time.perf_counter() - t0
         return results

@@ -30,6 +30,7 @@ from hiphase_tpu_torch.phasing.astar import astar_solver
 from hiphase_tpu_torch.phasing.block_gen import (
     PhaseBlock, get_variant_type, is_phasable_variant,
 )
+from hiphase_tpu_torch.tracing import OFF, Recorder
 from hiphase_tpu_torch.writers.phase_stats import PhaseStats, ReadStats
 
 if TYPE_CHECKING:
@@ -391,21 +392,25 @@ def prepare_block(phase_problem: PhaseBlock, vcf_paths: list[str],
                   min_mapq: int,
                   global_config: read_parsing.GlobalRealignmentConfig | None,
                   device: torch.device | None = None,
-                  wfa_counters: WfaCounters | None = None) -> BlockData:
+                  wfa_counters: WfaCounters | None = None,
+                  spans: Recorder = OFF) -> BlockData:
     """Load variants + reads for one block (the host half of solve_block).
     With ``--wfa-engine device`` the reads' window graphs are aligned on
-    ``device``, counted in ``wfa_counters``."""
+    ``device``, counted in ``wfa_counters``, and the parts of the work are
+    spans of ``spans``."""
     load_homs = global_config is not None
-    variant_calls, hom_calls = load_variant_calls(
-        phase_problem, vcf_paths, reference_genome, reference_buffer, load_homs)
-    _mark_tr_overlaps(variant_calls, hom_calls)
+    with spans.span("prepare.variants"):
+        variant_calls, hom_calls = load_variant_calls(
+            phase_problem, vcf_paths, reference_genome, reference_buffer,
+            load_homs)
+        _mark_tr_overlaps(variant_calls, hom_calls)
 
     if global_config is not None:
         from hiphase_tpu_torch.phasing.global_realign import load_full_read_segments
         read_segments, phasable_segments, read_stats = load_full_read_segments(
             phase_problem, bam_paths, variant_calls, hom_calls,
             reference_genome, min_matched_alleles, min_mapq, global_config,
-            device, wfa_counters)
+            device, wfa_counters, spans)
     else:
         read_segments, phasable_segments, read_stats = \
             read_parsing.load_read_segments(
