@@ -61,6 +61,7 @@ from hiphase_tpu_torch.parallel import multihost as mh
 from hiphase_tpu_torch.parallel.engine_select import (
     DEFAULT_RATE_CACHE, ENGINES, RATE_MARGIN, DeferredUpgradeSolver,
     EngineChoice, choose_engine)
+from hiphase_tpu_torch.phasing.astar import take_sweep_counts
 from hiphase_tpu_torch.version import full_version
 
 logger = logging.getLogger("hiphase_tpu_torch")
@@ -68,7 +69,8 @@ logger = logging.getLogger("hiphase_tpu_torch")
 U64_MAX = 2**63 - 1
 
 # telemetry of the last run in this process (benches, tests, chip_smoke):
-# engine, device, solver and device-transfer counters, kernel launches
+# engine, device, solver and device-transfer counters, kernel launches,
+# the blocks of each estimated-cost sweep path
 LAST_RUN_STATS: dict = {}
 
 
@@ -257,6 +259,7 @@ def main(argv=None, device: torch.device | Sequence | None = None,
     logger.info("hiphase-tpu-torch version %s", full_version())
     check_settings(args)
     LAST_RUN_STATS.clear()
+    take_sweep_counts()
 
     # multi-host: rank 0 alone runs the writers; each rank resolves its own
     # engine (all engines give the same bytes); 'auto' rates the devices
@@ -673,6 +676,8 @@ def _run(args, argv, device, devices, choice, background) -> int:
         after = kernels.launch_counts()
         LAST_RUN_STATS["kernel_launches"] = {
             k: after[k] - launches_before[k] for k in after}
+    # blocks whose estimated-cost sweep ran in C++ and in Python
+    LAST_RUN_STATS["estimate_sweeps"] = take_sweep_counts()
     # the four stages (prepare summed over its threads; stages overlap)
     totals = spans.totals()
     LAST_RUN_STATS["stage_seconds"] = {

@@ -9,6 +9,12 @@ no BGZF codec). When neither loads (no compiler, or it refused the source),
 the compiler's error is logged once as a warning and every caller falls
 back to its pure-Python implementation. ``HIPHASE_TPU_NO_NATIVE`` disables
 both libraries.
+
+Beside it, and at the same time, the library of the A* oracle's heuristic
+sweep, built from ``hiphase_tpu_torch/csrc/astar_sweep.cc``
+(`kernels.build.build_sweep_library`; `astar_heuristic`); where it does
+not build, one warning, and `phasing.astar` sweeps in Python.
+``HIPHASE_TPU_NO_NATIVE`` disables it too.
 """
 
 from __future__ import annotations
@@ -23,11 +29,14 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 _LIB = None
+_SWEEP = None
 _TRIED = False
 _LOAD_LOCK = threading.Lock()
 # what `_load` found: origin ("committed" or "built"), path, codec, the
 # build's seconds, or the error that left the host layer in pure Python
 LOADED: dict = {}
+# and for the sweep's library: path and the build's seconds, or the error
+SWEEP_LOADED: dict = {}
 
 
 def _ptr(arr: np.ndarray) -> ctypes.c_void_p:
@@ -75,12 +84,13 @@ def codec_of(lib) -> str:
 
 
 def _load():
-    global _LIB, _TRIED
+    global _LIB, _SWEEP, _TRIED
     if _TRIED:
         return _LIB
     with _LOAD_LOCK:
         if not _TRIED:
             _LIB = _find_library()
+            _SWEEP = _find_sweep()
             _TRIED = True
     return _LIB
 
@@ -114,8 +124,85 @@ def _find_library():
     return lib
 
 
+def bind_sweep(path) -> ctypes.CDLL:
+    """Load the sweep's library at ``path``; raises OSError when it does
+    not load."""
+    lib = ctypes.CDLL(str(path))
+    lib.hn_astar_heuristic.restype = ctypes.c_int32
+    lib.hn_astar_heuristic.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p]
+    return lib
+
+
+def _find_sweep():
+    if os.environ.get("HIPHASE_TPU_NO_NATIVE"):
+        SWEEP_LOADED.update(path=None, error="HIPHASE_TPU_NO_NATIVE is set")
+        return None
+    from hiphase_tpu_torch.kernels.build import (
+        KernelBuildError, build_sweep_library)
+    try:
+        built = build_sweep_library()
+        lib = bind_sweep(built.library)
+    except (KernelBuildError, OSError) as e:
+        logger.warning("The A* sweep's native library is not available; "
+                       "the estimated-cost sweep runs in Python. %s", e)
+        SWEEP_LOADED.update(path=None, error=str(e))
+        return None
+    SWEEP_LOADED.update(path=str(built.library),
+                        build_seconds=built.seconds)
+    return lib
+
+
 def available() -> bool:
     return _load() is not None
+
+
+def sweep_available() -> bool:
+    _load()
+    return _SWEEP is not None
+
+
+_INT64 = range(-2 ** 63, 2 ** 63)
+
+
+def astar_heuristic(nv: int, max_segment_size: int, seg_start, seg_end,
+                    seg_off, alleles, quals, ignored, min_queue_size: int,
+                    queue_increment: int):
+    """The A* oracle's heuristic sweep over one block in C++ (see
+    hn_astar_heuristic in csrc/astar_sweep.cc; the call releases the
+    interpreter lock). Read r covers columns [seg_start[r], seg_end[r]) and
+    its alleles and quals there start at seg_off[r]. Returns (H[0..nv]
+    int64, bad_variants bool), or None when the library is not bound, an
+    input is out of range or one of the Python sweep's assertions would
+    fail."""
+    _load()
+    lib = _SWEEP
+    if (lib is None or min_queue_size not in _INT64
+            or queue_increment not in _INT64 or max_segment_size >= 2 ** 31):
+        return None
+    seg_start = np.ascontiguousarray(seg_start, dtype=np.int32)
+    seg_end = np.ascontiguousarray(seg_end, dtype=np.int32)
+    seg_off = np.ascontiguousarray(seg_off, dtype=np.int64)
+    alleles = np.ascontiguousarray(alleles, dtype=np.uint8)
+    quals = np.ascontiguousarray(quals, dtype=np.uint8)
+    ignored = np.ascontiguousarray(ignored, dtype=np.uint8)
+    n = len(seg_start)
+    if (len(seg_end) != n or len(seg_off) != n + 1 or len(ignored) != nv
+            or (n and (seg_off[0] < 0 or seg_off[-1] > min(len(alleles),
+                                                          len(quals))))):
+        return None
+    heuristics = np.empty(nv + 1, dtype=np.int64)
+    bad = np.empty(nv, dtype=np.uint8)
+    rc = lib.hn_astar_heuristic(
+        nv, max_segment_size, n, _ptr(seg_start), _ptr(seg_end),
+        _ptr(seg_off), _ptr(alleles), _ptr(quals), _ptr(ignored),
+        min_queue_size, queue_increment, _ptr(heuristics), _ptr(bad))
+    if rc != 0:
+        return None
+    return heuristics, bad.astype(bool)
 
 
 def bam_scan_records(raw: np.ndarray, name_blob: np.ndarray,

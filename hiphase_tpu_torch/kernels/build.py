@@ -7,7 +7,9 @@ shared header and the flags, so an edited source rebuilds and an unchanged
 one is reused. Builds of several sources run as concurrent nvcc processes.
 ``csrc/hiphase_native.cc`` (the host library: BGZF, BAM and VCF scans,
 allele assignment, the C++ beam) becomes
-``build/libhiphase_native_<hash>.so`` the same way (`build_host_library`).
+``build/libhiphase_native_<hash>.so`` the same way (`build_host_library`),
+and ``csrc/astar_sweep.cc`` (the A* oracle's heuristic sweep, no codec)
+``build/libastar_sweep_<hash>.so`` (`build_sweep_library`).
 Every library is written under a temporary name and renamed into place, so
 concurrent processes never load a half-written file.
 """
@@ -30,6 +32,7 @@ HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_SOURCE = CSRC / "hiphase_native.cc"
+SWEEP_SOURCE = CSRC / "astar_sweep.cc"
 # no -march=native: the hash does not cover the host CPU, so a library
 # cached on one CPU may be loaded on another
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
@@ -158,21 +161,49 @@ def build_host_library(codec: str = "auto") -> BuiltHostLibrary:
         lib = host_library_path(c)
         if lib.exists():
             return BuiltHostLibrary(lib, c, 0.0)
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(
-            f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
         value, libs = CODECS[c]
-        cmd = [compiler, *HOST_FLAGS, f"-DHN_CODEC={value}", "-o", str(tmp),
-               str(HOST_SOURCE), *libs]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode == 0:
-            os.replace(tmp, lib)
-            return BuiltHostLibrary(lib, c, seconds)
-        tmp.unlink(missing_ok=True)
-        failures.append(f"codec {c}: {' '.join(cmd)}\nexited "
-                        f"{proc.returncode}\n{proc.stdout}")
+        out = _compile(compiler, HOST_SOURCE, lib,
+                       (*HOST_FLAGS, f"-DHN_CODEC={value}"), libs)
+        if isinstance(out, float):
+            return BuiltHostLibrary(lib, c, out)
+        failures.append(f"codec {c}: {out}")
     raise KernelBuildError("the native host library did not build:\n"
                            + "\n".join(failures))
+
+
+def sweep_library_path() -> Path:
+    h = hashlib.sha256(SWEEP_SOURCE.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"libastar_sweep_{h.hexdigest()[:16]}.so"
+
+
+def build_sweep_library() -> BuiltHostLibrary:
+    """Build (or find in the cache) the library of the A* oracle's
+    heuristic sweep (``hn_astar_heuristic``): the host library's compiler
+    and flags, no codec."""
+    lib = sweep_library_path()
+    if lib.exists():
+        return BuiltHostLibrary(lib, "none", 0.0)
+    out = _compile(cxx(), SWEEP_SOURCE, lib, HOST_FLAGS, ())
+    if isinstance(out, float):
+        return BuiltHostLibrary(lib, "none", out)
+    raise KernelBuildError(f"the A* sweep library did not build:\n{out}")
+
+
+def _compile(compiler: str, source: Path, lib: Path, flags, libs
+             ) -> float | str:
+    """Compile ``source`` into ``lib`` through a temporary name; the
+    compiler's seconds, or its command and output when it failed."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(
+        f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+    cmd = [compiler, *flags, "-o", str(tmp), str(source), *libs]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode == 0:
+        os.replace(tmp, lib)
+        return seconds
+    tmp.unlink(missing_ok=True)
+    return f"{' '.join(cmd)}\nexited {proc.returncode}\n{proc.stdout}"

@@ -11,18 +11,25 @@ This solver is the parity oracle for the production TPU beam engine
 depth, so the heuristic cancels out of the ranking and the beam engine needs
 none; this module keeps it for A*'s cross-depth priority and for the
 ``estimated_cost`` statistic.
+
+The heuristic sweep runs in C++ where the native library of
+``csrc/astar_sweep.cc`` is bound (`io.native.astar_heuristic`, an exact
+twin), else in Python (`python_astar_heuristic`, the oracle the tests hold
+the C++ to).
 """
 
 from __future__ import annotations
 
 import heapq
 import itertools
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 
 from hiphase_tpu_torch.core.read_segments import ReadSegment
 from hiphase_tpu_torch.core.variants import AlleleType, VariantType
+from hiphase_tpu_torch.io import native
 from hiphase_tpu_torch.writers.phase_stats import PhaseStats
 
 REF = int(AlleleType.REFERENCE)
@@ -67,11 +74,25 @@ class _Node:
 
 
 class _BlockReads:
-    """Dense tensor view of the block's reads for fast cost deltas."""
+    """Dense tensor view of the block's reads for fast cost deltas, built
+    at the first use of one of its arrays (the native sweep reads the
+    segments alone)."""
+
+    _DENSE = ("alleles", "quals", "starts", "ends", "overlapping")
 
     def __init__(self, read_segments: list[ReadSegment], num_variants: int):
+        self.read_segments = read_segments
         self.num_reads = len(read_segments)
         self.num_variants = num_variants
+
+    def __getattr__(self, name):
+        if name not in _BlockReads._DENSE:
+            raise AttributeError(name)
+        self._build_dense()
+        return self.__dict__[name]
+
+    def _build_dense(self) -> None:
+        read_segments, num_variants = self.read_segments, self.num_variants
         self.alleles = np.full((self.num_reads, num_variants), 3, dtype=np.uint8)
         self.quals = np.zeros((self.num_reads, num_variants), dtype=np.int64)
         self.starts = np.zeros(self.num_reads, dtype=np.int64)
@@ -156,6 +177,20 @@ def astar_subsolver(problem_offset: int, problem_size: int, reads: _BlockReads,
     return max_cost_so_far, next_expected - 1
 
 
+# blocks swept by each path in this process (a forked worker counts in its
+# own copy); `cli.main` takes them per run
+_SWEEPS = {"native": 0, "python": 0}
+_SWEEPS_LOCK = threading.Lock()
+
+
+def take_sweep_counts() -> dict[str, int]:
+    """The blocks swept natively and in Python since the last call."""
+    with _SWEEPS_LOCK:
+        counts = dict(_SWEEPS)
+        _SWEEPS.update(native=0, python=0)
+    return counts
+
+
 def calculate_astar_heuristic(num_variants: int, max_segment_size: int,
                               reads: _BlockReads, min_queue_size: int,
                               queue_increment: int,
@@ -163,14 +198,59 @@ def calculate_astar_heuristic(num_variants: int, max_segment_size: int,
                               ) -> tuple[list[int], list[bool]]:
     """Right-to-left sweep building the admissible-ish estimate array H[0..n]
     (ref: astar_phaser.rs:246-292). ``bad_variants`` detection stays disabled
-    as in the reference; ignored variants seed the array."""
+    as in the reference; ignored variants seed the array. In C++ where its
+    library is bound, else `python_astar_heuristic`: the same arrays."""
     assert max_segment_size >= 2
-    heuristics = [0] * (num_variants + 1)
     if bad_variants is None:
         bad_variants = [False] * num_variants
     else:
         assert len(bad_variants) == num_variants
-        bad_variants = list(bad_variants)
+    out = _native_astar_heuristic(num_variants, max_segment_size,
+                                  reads.read_segments, min_queue_size,
+                                  queue_increment, bad_variants)
+    with _SWEEPS_LOCK:
+        _SWEEPS["python" if out is None else "native"] += 1
+    if out is not None:
+        return out
+    return python_astar_heuristic(num_variants, max_segment_size, reads,
+                                  min_queue_size, queue_increment,
+                                  bad_variants)
+
+
+def _native_astar_heuristic(num_variants, max_segment_size, read_segments,
+                            min_queue_size, queue_increment, bad_variants):
+    """`native.astar_heuristic` on the segments packed as they are (O(reads),
+    no dense view), as Python lists; None where it does not run."""
+    if not native.sweep_available():
+        return None
+    n = len(read_segments)
+    seg_start = np.fromiter((rs.start for rs in read_segments), np.int32, n)
+    seg_end = np.fromiter((rs.end for rs in read_segments), np.int32, n)
+    seg_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.fromiter((len(rs.alleles) for rs in read_segments),
+                          np.int64, n), out=seg_off[1:])
+    empty = np.empty(0, dtype=np.uint8)
+    alleles = np.concatenate([rs.alleles for rs in read_segments]) if n \
+        else empty
+    quals = np.concatenate([rs.quals for rs in read_segments]) if n \
+        else empty
+    out = native.astar_heuristic(
+        num_variants, max_segment_size, seg_start, seg_end, seg_off,
+        alleles, quals, np.asarray(bad_variants, dtype=bool),
+        min_queue_size, queue_increment)
+    if out is None:
+        return None
+    heuristics, bad = out
+    return heuristics.tolist(), bad.tolist()
+
+
+def python_astar_heuristic(num_variants: int, max_segment_size: int,
+                           reads: _BlockReads, min_queue_size: int,
+                           queue_increment: int, bad_variants: list[bool]
+                           ) -> tuple[list[int], list[bool]]:
+    """The sweep in Python: the oracle of ``hn_astar_heuristic``."""
+    heuristics = [0] * (num_variants + 1)
+    bad_variants = list(bad_variants)
     max_clip_size = 1
     for v_index in range(num_variants - 1, -1, -1):
         max_estimate, solve_size = astar_subsolver(

@@ -7,6 +7,8 @@ BGZF that Python's gzip reads back exactly and read the committed
 library's BGZF; the zlib build must phase exactly as the committed library
 and the host A* oracle do; and the loader must try the committed library
 first, then the port's build, and neither under HIPHASE_TPU_NO_NATIVE.
+Beside either, the loader builds and binds the library of the A* oracle's
+heuristic sweep (csrc/astar_sweep.cc), or leaves the Python sweep.
 """
 
 import gzip
@@ -20,6 +22,7 @@ import pytest
 from hiphase_tpu_torch import cli
 from hiphase_tpu_torch.io import native
 from hiphase_tpu_torch.kernels import build
+from hiphase_tpu_torch.phasing import astar
 from hiphase_tpu_torch.utils import golden
 
 from tests.sim import build_dataset
@@ -173,9 +176,54 @@ def test_cli_native_engine_on_the_zlib_build(libraries, tmp_path,
 @pytest.fixture
 def fresh_loader(monkeypatch):
     monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_SWEEP", None)
     monkeypatch.setattr(native, "_TRIED", False)
     monkeypatch.setattr(native, "LOADED", {})
+    monkeypatch.setattr(native, "SWEEP_LOADED", {})
     monkeypatch.delenv("HIPHASE_TPU_NO_NATIVE", raising=False)
+
+
+def _sweep_path():
+    """Which path `astar.calculate_astar_heuristic` takes on a small
+    block: "native" or "python"."""
+    from hiphase_tpu_torch.core.read_segments import ReadSegment
+    reads = [ReadSegment.new(f"r{i}", [i % 2, 1, 0, (i + 1) % 2],
+                             [20, 30, 25, 40]) for i in range(6)]
+    astar.take_sweep_counts()
+    astar.calculate_astar_heuristic(4, astar.MAX_SEGMENT_SIZE,
+                                    astar._BlockReads(reads, 4), 1000, 3,
+                                    None)
+    counts = astar.take_sweep_counts()
+    assert sum(counts.values()) == 1
+    return max(counts, key=counts.get)
+
+
+@pytest.mark.parametrize("host", ["committed", "built"])
+def test_loader_binds_the_sweep_library_with_the_host_library(
+        libraries, fresh_loader, tmp_path, monkeypatch, host):
+    if host == "built":
+        monkeypatch.setattr(native, "COMMITTED_PATH",
+                            str(tmp_path / "none.so"))
+    assert native.available()
+    assert native.LOADED["origin"] == host
+    assert native.sweep_available()
+    assert native.SWEEP_LOADED["path"] == str(build.sweep_library_path())
+    assert _sweep_path() == "native"
+
+
+def test_failed_sweep_build_leaves_the_python_sweep_with_one_warning(
+        fresh_loader, monkeypatch, caplog):
+    def refuse(*_a, **_kw):
+        raise build.KernelBuildError("g++: error: the sweep said no")
+    monkeypatch.setattr(build, "build_sweep_library", refuse)
+    with caplog.at_level(logging.WARNING, logger=native.__name__):
+        assert native.available()
+        assert not native.sweep_available()
+        assert _sweep_path() == "python"
+    warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
+    assert len(warnings) == 1
+    assert "the sweep said no" in warnings[0].getMessage()
+    assert native.SWEEP_LOADED["path"] is None
 
 
 def test_loader_takes_the_committed_library_first(fresh_loader,
@@ -222,6 +270,10 @@ def test_no_native_disables_both_libraries(fresh_loader, monkeypatch):
     def no_build(*_a, **_kw):
         raise AssertionError("built under HIPHASE_TPU_NO_NATIVE")
     monkeypatch.setattr(build, "build_host_library", no_build)
+    monkeypatch.setattr(build, "build_sweep_library", no_build)
     monkeypatch.setenv("HIPHASE_TPU_NO_NATIVE", "1")
     assert not native.available()
     assert native.LOADED["origin"] is None
+    assert not native.sweep_available()
+    assert native.SWEEP_LOADED["path"] is None
+    assert _sweep_path() == "python"
