@@ -25,13 +25,17 @@ ladder for many reads against one graph.
 The host side (`GraphArrays`, `linearize_graph`, `_padded_arrays`,
 `H_LADDER`) is the JAX package's numpy code, re-homed because importing its
 module loads JAX. It returns arrays equal to the JAX package's for the same
-graph, so both packages can be fed the same bytes.
+graph, so both packages can be fed the same bytes. Dual mode's blocks are
+packed by the native window packer instead (``csrc/wfa_pack.cc``, through
+`PairBatch.from_windows`), which writes the same words; the Python
+linearisation stays as its oracle and for the windows it refuses.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+from collections.abc import Callable
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -217,46 +221,122 @@ def _graph_record(pchar, pnode, pstart, pend, c_out, par_idx, par_shift,
 
 class PairBatch:
     """Pairs (graph ``graph_of[b]``, ``reads[b]``) packed for one upload;
-    per-pair offsets into the packed arrays as numpy vectors."""
+    per-pair offsets into the packed arrays as numpy vectors.
+    ``n_native`` counts the pairs whose graph the native window packer
+    wrote (`from_windows`)."""
 
     def __init__(self, graphs: list[_Graph], reads: list[bytes],
                  graph_of: list[int]):
-        self.n = len(reads)
-        self.P = max(g.par_idx.shape[1] for g in graphs)
-        g_len = np.array([len(g.pos) for g in graphs], np.int64)
-        n_len = np.array([len(g.par_idx) for g in graphs], np.int64)
-        g_off = np.concatenate([[0], np.cumsum(g_len)[:-1]])
-        n_off = np.concatenate([[0], np.cumsum(n_len)[:-1]])
         sg = np.asarray(graph_of, np.int64)
-        self.goff, self.G = g_off[sg], g_len[sg]
-        self.gnoff, self.N = n_off[sg], n_len[sg]
+        g_off, n_off = self._lay_out(
+            [len(g.pos) for g in graphs], [len(g.par_idx) for g in graphs],
+            max(g.par_idx.shape[1] for g in graphs), sg,
+            [len(r) for r in reads])
         self.last_node = np.array([graphs[i].last_node for i in sg], np.int64)
         self.c_end = np.array([graphs[i].c_end for i in sg], np.int64)
         self.spread = np.array([graphs[i].spread for i in sg], np.int64)
-        self.rlen = np.array([len(r) for r in reads], np.int64)
+        for g, go, no in zip(graphs, g_off, n_off):
+            self._put(g, go, no)
+        self._put_reads(reads)
+
+    @classmethod
+    def of_pairs(cls, pairs: list[tuple]) -> PairBatch:
+        """(graph, read) pairs, each graph linearised in Python
+        (`linearize_graph`)."""
+        return cls([_linearized(g) for g, _r in pairs],
+                   [r for _g, r in pairs], list(range(len(pairs))))
+
+    @classmethod
+    def from_windows(cls, pack, chrom_seq: bytes, ref_start, ref_end,
+                     reads: list[bytes], python_graph):
+        """Read k against the graph of its window [ref_start[k], ref_end[k])
+        of ``chrom_seq`` over the block's variants ``pack`` (a
+        `phasing.global_realign.WfaBlockPack`), one graph a pair. The native
+        window packer (csrc/wfa_pack.cc: `io.native.wfa_pack_sizes`, then
+        `wfa_pack_write`) builds and writes each window's graph; a window it
+        refuses, and every window where its library is not bound or
+        ``pack`` is None, is linearised here from the `WFAGraph`
+        ``python_graph(k)``. Returns (batch, built [n] bool, triples): the
+        packer's (node, block variant index, allele) triples of built
+        window k are [tri_off[k], tri_off[k + 1]) of (tri_off, node, var,
+        val)."""
+        from hiphase_tpu_torch.io import native
+
+        n = len(reads)
+        rlen = np.fromiter(map(len, reads), np.int64, n)
+        read_off = np.concatenate([[0], np.cumsum(rlen)]).astype(np.int64)
+        args = (pack, chrom_seq, ref_start, ref_end,
+                np.frombuffer(b"".join(reads), np.uint8), read_off)
+        info = native.wfa_pack_sizes(*args) if pack is not None else None
+        if info is None:
+            info = np.zeros((n, native.PACK_INFO), np.int64)
+        built = info[:, 0] == 1
+        graphs = {int(k): _linearized(python_graph(int(k)))
+                  for k in np.flatnonzero(~built)}
+        # G, N, P, last node, c_end, spread
+        sizes = info[:, 1:7].copy()
+        for k, g in graphs.items():
+            sizes[k] = (len(g.pos), len(g.par_idx), g.par_idx.shape[1],
+                        g.last_node, g.c_end, g.spread)
+        self = cls.__new__(cls)
+        self._lay_out(sizes[:, 0], sizes[:, 1], sizes[:, 2].max(),
+                      np.arange(n), rlen)
+        self.n_native = int(built.sum())
+        self.last_node, self.c_end, self.spread = sizes[:, 3:6].T.copy()
+        tri_off = np.concatenate(
+            [[0], np.cumsum(np.where(built, info[:, 7], 0))]).astype(np.int64)
+        if self.n_native:
+            # writes every read's bases too
+            triples = native.wfa_pack_write(
+                *args, info, self.P, self.goff, self.gnoff, self.roff,
+                self.sections, self.flat, tri_off)
+        else:
+            triples = (np.zeros(0, np.int32),) * 3
+            self._put_reads(reads)
+        for k, g in graphs.items():
+            self._put(g, self.goff[k], self.gnoff[k])
+        return self, built, (tri_off, *triples)
+
+    def _lay_out(self, g_len, n_len, P: int, graph_of: np.ndarray, rlen):
+        """Place graphs of ``g_len`` positions and ``n_len`` nodes (parent
+        tables P wide), pair b's graph graph_of[b] and its read of rlen[b]
+        bytes: the per-pair vectors, the sections and a zeroed buffer.
+        Returns each graph's position and node offsets."""
+        g_len = np.asarray(g_len, np.int64)
+        n_len = np.asarray(n_len, np.int64)
+        g_off, n_off = _exclusive(g_len), _exclusive(n_len)
+        self.n, self.n_native, self.P = len(rlen), 0, int(P)
+        self.goff, self.G = g_off[graph_of], g_len[graph_of]
+        self.gnoff, self.N = n_off[graph_of], n_len[graph_of]
+        self.rlen = np.asarray(rlen, np.int64)
         slot = (np.maximum(self.rlen, 1) + 15) // 16 * 16
-        self.roff = np.concatenate([[0], np.cumsum(slot)[:-1]])
-        read_bytes = np.zeros(int(slot.sum()), np.uint8)
+        self.roff = _exclusive(slot)
+        words = [2 * int(g_len.sum()), int(n_len.sum()) * self.P,
+                 int(n_len.sum()) * self.P, int(slot.sum()) // 4]
+        # every section starts on a 16-byte boundary
+        self.sections = np.cumsum([0] + [w + -w % 4 for w in words])
+        if int(self.sections[-1]) >= 1 << 31:
+            raise ValueError("a WFA pair batch must hold < 2^31 words")
+        self.flat = np.zeros(int(self.sections[-1]), np.int32)
+        return g_off, n_off
+
+    def _put(self, g: _Graph, goff: int, gnoff: int) -> None:
+        """Graph g's positions at position offset goff, its parent tables
+        at node offset gnoff, padded to P with -1 and 0."""
+        lo = 2 * int(goff)
+        self.flat[lo:lo + g.pos.size] = g.pos.ravel()
+        N = len(g.par_idx)
+        for sec, table, fill in ((1, g.par_idx, -1), (2, g.par_shift, 0)):
+            lo = int(self.sections[sec]) + int(gnoff) * self.P
+            rows = self.flat[lo:lo + N * self.P].reshape(N, self.P)
+            rows[:] = fill
+            rows[:, :table.shape[1]] = table
+
+    def _put_reads(self, reads: list[bytes]) -> None:
+        s = self.sections
+        read_bytes = self.flat[s[3]:s[4]].view(np.uint8)
         for off, r in zip(self.roff, reads):
             read_bytes[off:off + len(r)] = np.frombuffer(bytes(r), np.uint8)
-
-        def padded(t, width, fill):
-            out = np.full((len(t), width), fill, np.int32)
-            out[:, :t.shape[1]] = t
-            return out
-
-        parts = [np.concatenate([g.pos for g in graphs]).ravel(),
-                 np.concatenate([padded(g.par_idx, self.P, -1)
-                                 for g in graphs]).ravel(),
-                 np.concatenate([padded(g.par_shift, self.P, 0)
-                                 for g in graphs]).ravel(),
-                 read_bytes.view(np.int32)]
-        # every section starts on a 16-byte boundary
-        parts = [np.pad(p, (0, -len(p) % 4)) for p in parts]
-        self.sections = np.cumsum([0] + [len(p) for p in parts])
-        self.flat = np.concatenate(parts)
-        if int(self.flat.size) >= 1 << 31:
-            raise ValueError("a WFA pair batch must hold < 2^31 words")
 
     def upload(self, device: torch.device):
         """(pos [ΣG, 2] int32, par_idx, par_shift [ΣN, P] int32, reads [R]
@@ -623,6 +703,10 @@ class WfaCounters:
     pair_launches: int = 0
     max_pairs_per_launch: int = 0
     h2d_copies: int = 0
+    # windows linearised for the ladder: by the native window packer, or
+    # in Python (`linearize_graph`)
+    windows: dict = field(default_factory=lambda: {"native": 0,
+                                                   "python": 0})
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 
@@ -640,6 +724,11 @@ class WfaCounters:
                                             max_pairs)
             self.h2d_copies += h2d_copies
 
+    def add_windows(self, native: int, python: int) -> None:
+        with self._lock:
+            self.windows["native"] += native
+            self.windows["python"] += python
+
     def as_dict(self) -> dict:
         with self._lock:
             return {"reads": self.reads,
@@ -651,7 +740,8 @@ class WfaCounters:
                         self.pair_launches / self.band_calls
                         if self.band_calls else 0.0),
                     "max_pairs_per_launch": self.max_pairs_per_launch,
-                    "h2d_copies": self.h2d_copies}
+                    "h2d_copies": self.h2d_copies,
+                    "windows": dict(self.windows)}
 
 
 def _own_stream(device: torch.device):
@@ -682,28 +772,33 @@ def _launch_groups(need: np.ndarray, budget: int | None
     return groups
 
 
-def align_pairs_device(pairs: list[tuple], device: torch.device,
-                       h_ladder=H_LADDER,
+def align_pairs_device(make_batch: Callable[[], PairBatch],
+                       device: torch.device, h_ladder=H_LADDER,
                        counters: WfaCounters | None = None,
                        spans: Recorder = OFF):
     """Align a batch of (graph, read) pairs on ``device``, each read
-    against its own graph, climbing the band ladder together.
+    against its own graph, climbing the band ladder together. The pairs
+    are those of the `PairBatch` that ``make_batch()`` packs, inside the
+    span: `PairBatch.of_pairs` for (graph, read) pairs,
+    `PairBatch.from_windows` for a block's read windows.
 
-    Returns a list parallel to ``pairs``: (score, traversed_nodes) for
-    pairs whose banded result is certified exact (score + spread <= H), or
-    None for pairs the ladder could not certify — the caller falls back to
-    the host aligner for those. Scores above the graph's max edit distance
-    are returned as-is; the caller applies the reference's max-ED failure
-    semantics. The results are those of aligning each pair alone.
+    Returns a list parallel to the batch's pairs: (score, traversed_nodes)
+    for pairs whose banded result is certified exact (score + spread <= H),
+    or None for pairs the ladder could not certify — the caller falls back
+    to the host aligner for those. Scores above the graph's max edit
+    distance are returned as-is; the caller applies the reference's max-ED
+    failure semantics. The results are those of aligning each pair alone.
 
     The whole call is a span ``wfa.ladder`` of ``spans``: linearising and
     packing the graphs, then each rung's sizing, launches and unpacking; a
     rung's wait for the scratch lock is a span ``wfa.scratch_lock`` and its
-    wait for the results a span ``wfa.device_wait``.
+    wait for the results a span ``wfa.device_wait``. ``counters`` count
+    the windows by who linearised them.
     """
     with spans.span("wfa.ladder"):
-        batch = PairBatch([_linearized(g) for g, _r in pairs],
-                          [r for _g, r in pairs], list(range(len(pairs))))
+        batch = make_batch()
+        if counters is not None:
+            counters.add_windows(batch.n_native, batch.n - batch.n_native)
         return _ladder(batch, device, h_ladder, counters, spans)
 
 
@@ -712,6 +807,8 @@ def align_reads_device(graph, reads: list[bytes], device: torch.device,
                        counters: WfaCounters | None = None):
     """`align_pairs_device` for many reads against ONE graph."""
     batch = PairBatch([_linearized(graph)], list(reads), [0] * len(reads))
+    if counters is not None:
+        counters.add_windows(0, 1)
     return _ladder(batch, device, h_ladder, counters)
 
 

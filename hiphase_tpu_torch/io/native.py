@@ -10,11 +10,15 @@ the compiler's error is logged once as a warning and every caller falls
 back to its pure-Python implementation. ``HIPHASE_TPU_NO_NATIVE`` disables
 both libraries.
 
-Beside it, and at the same time, the library of the A* oracle's heuristic
-sweep, built from ``hiphase_tpu_torch/csrc/astar_sweep.cc``
-(`kernels.build.build_sweep_library`; `astar_heuristic`); where it does
-not build, one warning, and `phasing.astar` sweeps in Python.
-``HIPHASE_TPU_NO_NATIVE`` disables it too.
+Beside it, and at the same time, two libraries of the port's own: the A*
+oracle's heuristic sweep, built from ``hiphase_tpu_torch/csrc/astar_sweep.cc``
+(`kernels.build.build_sweep_library`; `astar_heuristic`), and the device
+WFA's window packer, built from ``hiphase_tpu_torch/csrc/wfa_pack.cc``
+(`kernels.build.build_pack_library`; `wfa_pack_sizes`, `wfa_pack_write`).
+Where one does not build, one warning, and its caller's Python path:
+`phasing.astar` sweeps in Python, dual mode's device WFA builds and
+linearises each window in Python. ``HIPHASE_TPU_NO_NATIVE`` disables them
+too.
 """
 
 from __future__ import annotations
@@ -30,13 +34,16 @@ logger = logging.getLogger(__name__)
 
 _LIB = None
 _SWEEP = None
+_PACK = None
 _TRIED = False
 _LOAD_LOCK = threading.Lock()
 # what `_load` found: origin ("committed" or "built"), path, codec, the
 # build's seconds, or the error that left the host layer in pure Python
 LOADED: dict = {}
-# and for the sweep's library: path and the build's seconds, or the error
+# and for the sweep's and the packer's libraries: path and the build's
+# seconds, or the error
 SWEEP_LOADED: dict = {}
+PACK_LOADED: dict = {}
 
 
 def _ptr(arr: np.ndarray) -> ctypes.c_void_p:
@@ -84,13 +91,22 @@ def codec_of(lib) -> str:
 
 
 def _load():
-    global _LIB, _SWEEP, _TRIED
+    global _LIB, _SWEEP, _PACK, _TRIED
     if _TRIED:
         return _LIB
     with _LOAD_LOCK:
         if not _TRIED:
+            from hiphase_tpu_torch.kernels import build
             _LIB = _find_library()
-            _SWEEP = _find_sweep()
+            _SWEEP = _find_own(
+                build.build_sweep_library, bind_sweep, SWEEP_LOADED,
+                "The A* sweep's native library is not available; the "
+                "estimated-cost sweep runs in Python.")
+            _PACK = _find_own(
+                build.build_pack_library, bind_pack, PACK_LOADED,
+                "The WFA window packer's native library is not available; "
+                "the device WFA's windows are built and linearised in "
+                "Python.")
             _TRIED = True
     return _LIB
 
@@ -137,22 +153,34 @@ def bind_sweep(path) -> ctypes.CDLL:
     return lib
 
 
-def _find_sweep():
+def bind_pack(path) -> ctypes.CDLL:
+    """Load the window packer's library at ``path``; raises OSError when it
+    does not load."""
+    lib = ctypes.CDLL(str(path))
+    lib.hn_wfa_pack_windows.restype = ctypes.c_int64
+    lib.hn_wfa_pack_windows.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
+        + [ctypes.c_void_p] * 9
+        + [ctypes.c_int64] + [ctypes.c_void_p] * 5
+        + [ctypes.c_int64] + [ctypes.c_void_p] * 9)
+    return lib
+
+
+def _find_own(build_fn, bind_fn, loaded: dict, unavailable: str):
+    """One of the port's own libraries (no committed copy): built, or found
+    in the cache, and bound; None, with one warning, when it is not."""
+    from hiphase_tpu_torch.kernels.build import KernelBuildError
     if os.environ.get("HIPHASE_TPU_NO_NATIVE"):
-        SWEEP_LOADED.update(path=None, error="HIPHASE_TPU_NO_NATIVE is set")
+        loaded.update(path=None, error="HIPHASE_TPU_NO_NATIVE is set")
         return None
-    from hiphase_tpu_torch.kernels.build import (
-        KernelBuildError, build_sweep_library)
     try:
-        built = build_sweep_library()
-        lib = bind_sweep(built.library)
+        built = build_fn()
+        lib = bind_fn(built.library)
     except (KernelBuildError, OSError) as e:
-        logger.warning("The A* sweep's native library is not available; "
-                       "the estimated-cost sweep runs in Python. %s", e)
-        SWEEP_LOADED.update(path=None, error=str(e))
+        logger.warning("%s %s", unavailable, e)
+        loaded.update(path=None, error=str(e))
         return None
-    SWEEP_LOADED.update(path=str(built.library),
-                        build_seconds=built.seconds)
+    loaded.update(path=str(built.library), build_seconds=built.seconds)
     return lib
 
 
@@ -163,6 +191,11 @@ def available() -> bool:
 def sweep_available() -> bool:
     _load()
     return _SWEEP is not None
+
+
+def pack_available() -> bool:
+    _load()
+    return _PACK is not None
 
 
 _INT64 = range(-2 ** 63, 2 ** 63)
@@ -203,6 +236,112 @@ def astar_heuristic(nv: int, max_segment_size: int, seg_start, seg_end,
     if rc != 0:
         return None
     return heuristics, bad.astype(bool)
+
+
+# columns of a window's row in `wfa_pack_sizes`: built (1) or refused (0),
+# G, N, P (padded), last node, band center at the end, spread, triples
+PACK_INFO = 8
+
+
+def _pack_args(pack, chrom_seq: bytes, ref_start, ref_end, read_blob,
+               read_off):
+    """The arguments both passes of hn_wfa_pack_windows share, checked;
+    the arrays are returned too, so the caller keeps them alive."""
+    ref_start = np.ascontiguousarray(ref_start, dtype=np.int64)
+    ref_end = np.ascontiguousarray(ref_end, dtype=np.int64)
+    read_off = np.ascontiguousarray(read_off, dtype=np.int64)
+    read_blob = np.ascontiguousarray(read_blob, dtype=np.uint8)
+    n = len(ref_start)
+    if (len(ref_end) != n or len(read_off) != n + 1 or read_off[0] != 0
+            or (np.diff(read_off) < 0).any()
+            or read_off[-1] > len(read_blob)):
+        raise ValueError("wfa_pack: need n windows and n + 1 ascending "
+                         "read offsets into the read bytes")
+    for name, a, dt in (("pos", pack.pos, np.int64),
+                        ("ref_len", pack.ref_len, np.int64),
+                        ("var_index", pack.var_index, np.int32),
+                        ("a0_is_alt", pack.a0_is_alt, np.uint8),
+                        ("a0_off", pack.a0_off, np.int64),
+                        ("a0_len", pack.a0_len, np.int64),
+                        ("a1_off", pack.a1_off, np.int64),
+                        ("a1_len", pack.a1_len, np.int64)):
+        if a.dtype != dt or not a.flags.c_contiguous or len(a) != pack.n:
+            raise ValueError(f"wfa_pack: the block's {name} must be "
+                             f"{pack.n} contiguous {np.dtype(dt).name}")
+    seq = np.frombuffer(chrom_seq, dtype=np.uint8)
+    keep = (seq, ref_start, ref_end, read_blob, read_off)
+    args = [_ptr(seq), len(seq), pack.n, _ptr(pack.pos), _ptr(pack.ref_len),
+            _ptr(pack.var_index), _ptr(pack.a0_is_alt), _ptr(pack.blob),
+            _ptr(pack.a0_off), _ptr(pack.a0_len), _ptr(pack.a1_off),
+            _ptr(pack.a1_len), n, _ptr(ref_start), _ptr(ref_end),
+            _ptr(read_blob), _ptr(read_off)]
+    return args, keep
+
+
+def wfa_pack_sizes(pack, chrom_seq: bytes, ref_start, ref_end, read_blob,
+                   read_off):
+    """The sizing pass of the window packer (hn_wfa_pack_windows in
+    csrc/wfa_pack.cc; the call releases the interpreter lock): read k's
+    window [ref_start[k], ref_end[k]) over the block's variants ``pack``
+    (a `phasing.global_realign.WfaBlockPack`) of chromosome ``chrom_seq``,
+    its aligned bases read_blob[read_off[k]:read_off[k + 1]]. Returns the
+    rows [n, PACK_INFO] int64, or None when the library is not bound."""
+    _load()
+    lib = _PACK
+    if lib is None:
+        return None
+    args, _keep = _pack_args(pack, chrom_seq, ref_start, ref_end, read_blob,
+                             read_off)
+    info = np.zeros((len(ref_start), PACK_INFO), dtype=np.int64)
+    rc = lib.hn_wfa_pack_windows(*args, _ptr(info), 0, None, None, None,
+                                 None, None, None, None, None, None)
+    if rc != 0:
+        raise RuntimeError(f"hn_wfa_pack_windows refused its input ({rc})")
+    return info
+
+
+def wfa_pack_write(pack, chrom_seq: bytes, ref_start, ref_end, read_blob,
+                   read_off, info, P: int, goff, gnoff, roff, sections,
+                   flat, tri_off):
+    """The writing pass of the window packer, for the rows ``info`` of
+    `wfa_pack_sizes`: every built window's graph and every read's bases
+    into the int32 buffer ``flat`` (zeroed; the layout of
+    `align.wfa_device.PairBatch`: P, each pair's position, node and
+    read-byte offsets, the section starts in words), and each built
+    window's (node, block variant index, allele) triples from tri_off[k].
+    Returns (tri_node, tri_var, tri_val)."""
+    _load()
+    lib = _PACK
+    if lib is None:
+        raise RuntimeError("the WFA window packer's library is not bound")
+    args, _keep = _pack_args(pack, chrom_seq, ref_start, ref_end, read_blob,
+                             read_off)
+    n = len(ref_start)
+    info = np.ascontiguousarray(info, dtype=np.int64)
+    goff, gnoff, roff, sections, tri_off = (
+        np.ascontiguousarray(a, dtype=np.int64)
+        for a in (goff, gnoff, roff, sections, tri_off))
+    if (info.shape != (n, PACK_INFO) or len(goff) != n or len(gnoff) != n
+            or len(roff) != n or len(tri_off) != n + 1 or len(sections) != 5
+            or flat.dtype != np.int32 or not flat.flags.c_contiguous
+            or len(flat) != sections[4]
+            or (np.diff(sections) < 0).any() or sections[0] != 0):
+        raise ValueError("wfa_pack_write: the layout does not match the "
+                         "windows")
+    n_tri = int(tri_off[-1])
+    tri_node = np.zeros(n_tri, dtype=np.int32)
+    tri_var = np.zeros(n_tri, dtype=np.int32)
+    tri_val = np.zeros(n_tri, dtype=np.uint8)
+    if (tri_off[:-1] + np.where(info[:, 0] == 1, info[:, 7], 0)
+            > tri_off[1:]).any():
+        raise ValueError("wfa_pack_write: the triples do not fit")
+    rc = lib.hn_wfa_pack_windows(
+        *args, _ptr(info), int(P), _ptr(goff), _ptr(gnoff), _ptr(roff),
+        _ptr(sections), _ptr(flat), _ptr(tri_off), _ptr(tri_node),
+        _ptr(tri_var), _ptr(tri_val))
+    if rc != 0:
+        raise RuntimeError(f"hn_wfa_pack_windows refused the layout ({rc})")
+    return tri_node, tri_var, tri_val
 
 
 def bam_scan_records(raw: np.ndarray, name_blob: np.ndarray,

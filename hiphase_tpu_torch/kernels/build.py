@@ -8,8 +8,12 @@ one is reused. Builds of several sources run as concurrent nvcc processes.
 ``csrc/hiphase_native.cc`` (the host library: BGZF, BAM and VCF scans,
 allele assignment, the C++ beam) becomes
 ``build/libhiphase_native_<hash>.so`` the same way (`build_host_library`),
-and ``csrc/astar_sweep.cc`` (the A* oracle's heuristic sweep, no codec)
-``build/libastar_sweep_<hash>.so`` (`build_sweep_library`).
+``csrc/astar_sweep.cc`` (the A* oracle's heuristic sweep, no codec)
+``build/libastar_sweep_<hash>.so`` (`build_sweep_library`), and
+``csrc/wfa_pack.cc`` (the device WFA's window packer, no codec)
+``build/libwfa_pack_<hash>.so`` (`build_pack_library`). The host library
+and the packer include the one WFA graph builder, ``csrc/wfa_build.h``,
+and their hashes cover it.
 Every library is written under a temporary name and renamed into place, so
 concurrent processes never load a half-written file.
 """
@@ -33,6 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_SOURCE = CSRC / "hiphase_native.cc"
 SWEEP_SOURCE = CSRC / "astar_sweep.cc"
+PACK_SOURCE = CSRC / "wfa_pack.cc"
+# the WFA graph builder, included by HOST_SOURCE and PACK_SOURCE
+WFA_BUILD_HEADER = CSRC / "wfa_build.h"
 # no -march=native: the hash does not cover the host CPU, so a library
 # cached on one CPU may be loaded on another
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
@@ -127,10 +134,19 @@ def host_flags(codec: str) -> tuple[str, ...]:
     return (*HOST_FLAGS, f"-DHN_CODEC={value}", *libs)
 
 
+def _hashed_path(stem: str, sources, flags) -> Path:
+    """``build/lib<stem>_<hash>.so``, the hash over the sources' bytes and
+    the flags."""
+    h = hashlib.sha256()
+    for source in sources:
+        h.update(source.read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+
+
 def host_library_path(codec: str) -> Path:
-    h = hashlib.sha256(HOST_SOURCE.read_bytes())
-    h.update(" ".join(host_flags(codec)).encode())
-    return BUILD_DIR / f"libhiphase_native_{h.hexdigest()[:16]}.so"
+    return _hashed_path("hiphase_native", (HOST_SOURCE, WFA_BUILD_HEADER),
+                        host_flags(codec))
 
 
 def header_codec(compiler: str) -> str:
@@ -172,22 +188,38 @@ def build_host_library(codec: str = "auto") -> BuiltHostLibrary:
 
 
 def sweep_library_path() -> Path:
-    h = hashlib.sha256(SWEEP_SOURCE.read_bytes())
-    h.update(" ".join(HOST_FLAGS).encode())
-    return BUILD_DIR / f"libastar_sweep_{h.hexdigest()[:16]}.so"
+    return _hashed_path("astar_sweep", (SWEEP_SOURCE,), HOST_FLAGS)
 
 
 def build_sweep_library() -> BuiltHostLibrary:
     """Build (or find in the cache) the library of the A* oracle's
     heuristic sweep (``hn_astar_heuristic``): the host library's compiler
     and flags, no codec."""
-    lib = sweep_library_path()
+    return _build_plain(SWEEP_SOURCE, sweep_library_path(),
+                        "the A* sweep library")
+
+
+def pack_library_path() -> Path:
+    return _hashed_path("wfa_pack", (PACK_SOURCE, WFA_BUILD_HEADER),
+                        HOST_FLAGS)
+
+
+def build_pack_library() -> BuiltHostLibrary:
+    """Build (or find in the cache) the library of the device WFA's window
+    packer (``hn_wfa_pack_windows``): the host library's compiler and
+    flags, no codec."""
+    return _build_plain(PACK_SOURCE, pack_library_path(),
+                        "the WFA window packer's library")
+
+
+def _build_plain(source: Path, lib: Path, what: str) -> BuiltHostLibrary:
+    """``source`` built with HOST_FLAGS into ``lib``, unless it is there."""
     if lib.exists():
         return BuiltHostLibrary(lib, "none", 0.0)
-    out = _compile(cxx(), SWEEP_SOURCE, lib, HOST_FLAGS, ())
+    out = _compile(cxx(), source, lib, HOST_FLAGS, ())
     if isinstance(out, float):
         return BuiltHostLibrary(lib, "none", out)
-    raise KernelBuildError(f"the A* sweep library did not build:\n{out}")
+    raise KernelBuildError(f"{what} did not build:\n{out}")
 
 
 def _compile(compiler: str, source: Path, lib: Path, flags, libs

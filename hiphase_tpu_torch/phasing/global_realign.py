@@ -15,14 +15,20 @@ Two aligners, chosen by ``--wfa-engine``:
     ``io/native.py``, batched per fetched record chunk, else the Python
     aligner read by read). This is ``hiphase_tpu/phasing/global_realign.py``.
   * ``device`` — the banded graph DP of `align.wfa_device` on an explicit
-    torch device, in two passes over a block's reads: pass 1 builds every
-    read's window graph and aligns all of them in one batched band ladder
-    (a few kernel launches per block); pass 2 walks the reads in BAM order
-    as the host path does — the host aligner for reads the ladder could not
+    torch device, in two passes over a block's reads: pass 1 finds every
+    read's window and aligns all of them in one batched band ladder (a few
+    kernel launches per block); pass 2 walks the reads in BAM order as the
+    host path does — the host aligner for reads the ladder could not
     certify (the reference's exactness rule, not a device fallback),
     ``WFAGraphError`` when the device score exceeds
     ``--global-realignment-max-ed``, and the failure ladder. Results of
-    reads after the ladder trips are discarded unused.
+    reads after the ladder trips are discarded unused. The ladder's first
+    step builds every window's graph in the kernel's batch layout in C++
+    (the native window packer, ``csrc/wfa_pack.cc``), and pass 2 assigns a
+    certified read's alleles from the packer's (node, variant, allele)
+    triples; a read's Python window graph (`read_window`) is built only
+    where the packer refused the window (every window, where its library
+    is not bound) or the ladder certified no result.
 """
 
 from __future__ import annotations
@@ -557,14 +563,12 @@ def load_full_read_segments(phase_problem: PhaseBlock, bam_paths: list[str],
 # ---------------------------------------------------------------------------
 # --wfa-engine device
 
-def read_window(phase_problem: PhaseBlock, read: BamRecord,
-                variant_calls: list[Variant], hom_calls: list[Variant],
-                reference_genome: ReferenceGenome, max_edit_distance: int,
-                wfa_pack: WfaBlockPack | None = None):
-    """The read's aligned subsequence and the window graph over the het and
-    hom variants its mapping overlaps: (read_align, graph, node_to_alleles,
-    first het overlap), or None when it overlaps no het
-    (ref: read_parsing.rs:652-720)."""
+def _aligned_span(read: BamRecord, variant_calls: list[Variant],
+                  hom_calls: list[Variant], wfa_pack: WfaBlockPack | None):
+    """The read's aligned subsequence and where its mapping lies: (read_align,
+    min_position, max_position, first_overlap, last_overlap,
+    first_hom_overlap, last_hom_overlap), or None when it overlaps no het
+    (ref: read_parsing.rs:652-690)."""
     (r2q, base, min_position, max_position, first_overlap, last_overlap,
      num_overlaps, first_hom_overlap, last_hom_overlap) = _read_overlaps(
         read, variant_calls, hom_calls, wfa_pack)
@@ -574,8 +578,24 @@ def read_window(phase_problem: PhaseBlock, read: BamRecord,
     read_sequence = read.query_sequence()
     read_start = int(r2q[min_position - base])
     read_end = int(r2q[max_position - base])
-    read_align = read_sequence[read_start:read_end + 1]
+    return (read_sequence[read_start:read_end + 1], min_position,
+            max_position, first_overlap, last_overlap, first_hom_overlap,
+            last_hom_overlap)
 
+
+def read_window(phase_problem: PhaseBlock, read: BamRecord,
+                variant_calls: list[Variant], hom_calls: list[Variant],
+                reference_genome: ReferenceGenome, max_edit_distance: int,
+                wfa_pack: WfaBlockPack | None = None):
+    """The read's aligned subsequence and the window graph over the het and
+    hom variants its mapping overlaps: (read_align, graph, node_to_alleles,
+    first het overlap), or None when it overlaps no het
+    (ref: read_parsing.rs:652-720)."""
+    span = _aligned_span(read, variant_calls, hom_calls, wfa_pack)
+    if span is None:
+        return None
+    (read_align, min_position, max_position, first_overlap, last_overlap,
+     first_hom_overlap, last_hom_overlap) = span
     chrom_seq = reference_genome.get_full_chromosome(phase_problem.chrom)
     wfa_graph, node_to_alleles = WFAGraph.from_reference_variants_with_hom(
         chrom_seq,
@@ -611,15 +631,83 @@ def _device_assign(window, aligned, variant_calls: list[Variant],
     return alleles, quals, stats, wfa_result.score
 
 
+class _PackedWindows:
+    """A block's read windows for the ladder. Pass 1 gives each read's
+    aligned bases and window (`_aligned_span`); `batch`, which the ladder
+    calls inside its span, packs them (`wfa_device.PairBatch.from_windows`:
+    the native window packer, and `read_window` for the windows it
+    refuses); `assign` gives a read's alleles from the packer's triples
+    where the ladder certified it, and from its Python window (`window`,
+    built on demand) elsewhere."""
+
+    def __init__(self, wfa_pack: WfaBlockPack | None, chrom_seq: bytes,
+                 spans: list[tuple], python_window):
+        self.wfa_pack = wfa_pack
+        self.chrom_seq = chrom_seq
+        self.read_align = [a[0] for a in spans]
+        # a window is [min_position, max_position + 1)
+        self.ref_start = np.fromiter((a[1] for a in spans), np.int64,
+                                     len(spans))
+        self.ref_end = np.fromiter((a[2] + 1 for a in spans), np.int64,
+                                   len(spans))
+        self._python_window = python_window     # pair index → read_window
+        self._windows: dict[int, tuple] = {}
+        self.native = None
+        self.triples = None
+
+    def window(self, k: int):
+        """Pair k's Python window (`read_window`)."""
+        if k not in self._windows:
+            self._windows[k] = self._python_window(k)
+        return self._windows[k]
+
+    def batch(self):
+        """Every window packed, one graph a pair, in their order: a
+        `wfa_device.PairBatch` (`align_pairs_device`'s ``make_batch``)."""
+        from hiphase_tpu_torch.align.wfa_device import PairBatch
+
+        batch, self.native, self.triples = PairBatch.from_windows(
+            self.wfa_pack, self.chrom_seq, self.ref_start, self.ref_end,
+            self.read_align, lambda k: self.window(k)[1])
+        return batch
+
+    def assign(self, k: int, aligned, variant_calls: list[Variant],
+               wfa_prune_distance: int, global_max_edit_distance: int
+               ) -> tuple[np.ndarray, np.ndarray, ReadStats]:
+        """`_device_assign` of pair k, from the packer's triples when the
+        ladder certified it. Raises WFAGraphError on max-ED."""
+        if aligned is None or not self.native[k]:
+            return _device_assign(self.window(k), aligned, variant_calls,
+                                  wfa_prune_distance,
+                                  global_max_edit_distance)[:3]
+        dev_score, traversed = aligned
+        if dev_score > global_max_edit_distance:
+            raise WFAGraphError(global_max_edit_distance)
+        tri_off, node, var, val = self.triples
+        lo, hi = int(tri_off[k]), int(tri_off[k + 1])
+        hit = np.isin(node[lo:hi], np.asarray(traversed, np.int32))
+        var, val = var[lo:hi][hit], val[lo:hi][hit]
+        seen = np.zeros((2, len(variant_calls)), bool)
+        seen[val, var] = True
+        # a variant reached with both alleles is Ambiguous
+        alleles = np.where(seen[0] & seen[1], AMB,
+                           np.where(seen[0], 0, np.where(seen[1], 1, NOV))
+                           ).astype(np.uint8)
+        stats = ReadStats()
+        quals = _global_quals(alleles, variant_calls, stats)
+        return alleles, quals, stats
+
+
 def _load_full_read_segments_device(phase_problem, bam_paths, variant_calls,
                                     hom_calls, reference_genome,
                                     min_matched_alleles, min_mapq, config,
                                     device, counters, spans):
-    """``--wfa-engine device``: pass 1 builds every read's window and aligns
+    """``--wfa-engine device``: pass 1 finds every read's window and aligns
     all windows of the block in one batched band ladder; pass 2 walks the
     reads in BAM order exactly as the per-read path does. Spans: pass 1's
-    windows ``prepare.windows``, the ladder ``wfa.ladder`` (and its waits),
-    pass 2 ``prepare.assign``."""
+    windows ``prepare.windows`` (the fetch, the overlap search and the
+    read's aligned bases), the ladder ``wfa.ladder`` (the windows' graphs
+    and its waits), pass 2 ``prepare.assign``."""
     from hiphase_tpu_torch.align.wfa_device import align_pairs_device
     from hiphase_tpu_torch.io import native as native_mod
     from hiphase_tpu_torch.phasing.variant_pack import build_variant_pack
@@ -629,7 +717,8 @@ def _load_full_read_segments_device(phase_problem, bam_paths, variant_calls,
     with spans.span("prepare.windows"):
         local_pack = build_variant_pack(variant_calls)
         wfa_pack = WfaBlockPack(variant_calls, hom_calls) \
-            if native_mod.available() else None
+            if native_mod.pack_available() or native_mod.available() \
+            else None
         for bam_path in bam_paths:
             bam = cached_alignment(bam_path)
             for read in bam.fetch(phase_problem.chrom, phase_problem.start,
@@ -637,15 +726,21 @@ def _load_full_read_segments_device(phase_problem, bam_paths, variant_calls,
                 if filter_out_alignment_record(read, min_mapq):
                     continue
                 reads.append(read)
-                windows.append(read_window(
-                    phase_problem, read, variant_calls, hom_calls,
-                    reference_genome, config.max_edit_distance, wfa_pack))
+                windows.append(_aligned_span(read, variant_calls, hom_calls,
+                                             wfa_pack))
     with_window = [i for i, w in enumerate(windows) if w is not None]
+    pair_of = {i: k for k, i in enumerate(with_window)}
     aligned = [None] * len(reads)
     if with_window:
-        got = align_pairs_device(
-            [(windows[i][1], windows[i][0]) for i in with_window], device,
-            counters=counters, spans=spans)
+        packed = _PackedWindows(
+            wfa_pack,
+            reference_genome.get_full_chromosome(phase_problem.chrom),
+            [windows[i] for i in with_window],
+            lambda k: read_window(phase_problem, reads[with_window[k]],
+                                  variant_calls, hom_calls, reference_genome,
+                                  config.max_edit_distance, wfa_pack))
+        got = align_pairs_device(packed.batch, device, counters=counters,
+                                 spans=spans)
         for i, r in zip(with_window, got):
             aligned[i] = r
 
@@ -656,15 +751,23 @@ def _load_full_read_segments_device(phase_problem, bam_paths, variant_calls,
         global_disabled = False
         num_global_failures = 0.0
         total_parsed = 0.0
-        for read, window, result in zip(reads, windows, aligned):
+        for i, (read, window, result) in enumerate(zip(reads, windows,
+                                                       aligned)):
             if global_disabled:
                 alleles, quals, read_stats = local_realignment(
                     read, variant_calls, pack=local_pack)
             else:
                 try:
-                    alleles, quals, read_stats, _score = _device_assign(
-                        window, result, variant_calls,
-                        config.wfa_prune_distance, config.max_edit_distance)
+                    if window is None:
+                        alleles, quals, read_stats, _score = _device_assign(
+                            None, None, variant_calls,
+                            config.wfa_prune_distance,
+                            config.max_edit_distance)
+                    else:
+                        alleles, quals, read_stats = packed.assign(
+                            pair_of[i], result, variant_calls,
+                            config.wfa_prune_distance,
+                            config.max_edit_distance)
                 except WFAGraphError:
                     logger.debug("Reverting to local re-alignment for %s...",
                                  read.read_name)

@@ -199,14 +199,15 @@ def test_wfa_ladder_in_memory_sized_groups_matches_one_launch(
     launch, and of the plain version on the CPU."""
     from hiphase_tpu_torch.align import wfa_device as wd
     pairs = _seeded_pairs()
-    want = wd.align_pairs_device(pairs, CPU, h_ladder=(H,))
+
+    def batch():
+        return wd.PairBatch.of_pairs(pairs)
+    want = wd.align_pairs_device(batch, CPU, h_ladder=(H,))
     one = wd.WfaCounters()
-    assert wd.align_pairs_device(pairs, cuda, h_ladder=(H,),
+    assert wd.align_pairs_device(batch, cuda, h_ladder=(H,),
                                  counters=one) == want
     assert one.band_calls == 1
-    need = wd.PairBatch([wd._linearized(g) for g, _r in pairs],
-                        [r for _g, r in pairs],
-                        list(range(len(pairs)))).need_bytes(H)
+    need = batch().need_bytes(H)
     budget = 2 * int(need.max())
     groups = wd._launch_groups(need, budget)
     assert len(groups) >= 3
@@ -214,7 +215,7 @@ def test_wfa_ladder_in_memory_sized_groups_matches_one_launch(
     monkeypatch.setattr(wd, "_free_bytes", lambda dev: 2 * budget)
     split = wd.WfaCounters()
     before = kernels.launch_counts()["wfa_forward_backward"]
-    got = wd.align_pairs_device(pairs, cuda, h_ladder=(H,), counters=split)
+    got = wd.align_pairs_device(batch, cuda, h_ladder=(H,), counters=split)
     launches = kernels.launch_counts()["wfa_forward_backward"] - before
     assert got == want and any(r is not None for r in got)
     assert launches == split.band_calls == len(groups)

@@ -1,7 +1,9 @@
 """The port's own build of the native host library, on the CPU.
 
 hiphase_tpu_torch/csrc/hiphase_native.cc is native/hiphase_native.cc
-verbatim outside its two BGZF-codec regions; `build_host_library` compiles
+verbatim outside its two BGZF-codec regions and the region that includes
+the WFA graph builder, csrc/wfa_build.h, whose builder is the original's
+line for line; `build_host_library` compiles
 it with libdeflate, zlib or no codec. Each build must name its codec, write
 BGZF that Python's gzip reads back exactly and read the committed
 library's BGZF; the zlib build must phase exactly as the committed library
@@ -30,6 +32,8 @@ from tests.sim import build_dataset
 REPO = pathlib.Path(__file__).resolve().parent.parent
 BEGIN = "// ---- BGZF codec (hiphase_tpu_torch): begin ----"
 END = "// ---- BGZF codec (hiphase_tpu_torch): end ----"
+WFA_BEGIN = "// ---- WFA graph builder (hiphase_tpu_torch): begin ----"
+WFA_END = "// ---- WFA graph builder (hiphase_tpu_torch): end ----"
 
 
 @pytest.fixture(scope="module")
@@ -68,8 +72,20 @@ def _outside_regions(lines):
     return runs + [run]
 
 
+def _with_builder(port):
+    """The port's source with its builder region replaced by the builder
+    that csrc/wfa_build.h holds between its markers."""
+    header = build.WFA_BUILD_HEADER.read_text().split("\n")
+    builder = header[header.index("// ---- hn_wfa_build: begin ----") + 1:
+                     header.index("// ---- hn_wfa_build: end ----")]
+    lo, hi = port.index(WFA_BEGIN), port.index(WFA_END)
+    assert port[lo + 1:hi] == ['#include "wfa_build.h"']
+    assert any(line.startswith("int64_t hn_wfa_build(") for line in builder)
+    return port[:lo] + builder + port[hi + 1:]
+
+
 def test_source_equals_native_outside_codec_markers():
-    port = build.HOST_SOURCE.read_text().split("\n")
+    port = _with_builder(build.HOST_SOURCE.read_text().split("\n"))
     orig = (REPO / "native" / "hiphase_native.cc").read_text().split("\n")
     head, middle, tail = _outside_regions(port)
     # the original is head + (region) + middle + (region) + tail, line for
@@ -177,9 +193,11 @@ def test_cli_native_engine_on_the_zlib_build(libraries, tmp_path,
 def fresh_loader(monkeypatch):
     monkeypatch.setattr(native, "_LIB", None)
     monkeypatch.setattr(native, "_SWEEP", None)
+    monkeypatch.setattr(native, "_PACK", None)
     monkeypatch.setattr(native, "_TRIED", False)
     monkeypatch.setattr(native, "LOADED", {})
     monkeypatch.setattr(native, "SWEEP_LOADED", {})
+    monkeypatch.setattr(native, "PACK_LOADED", {})
     monkeypatch.delenv("HIPHASE_TPU_NO_NATIVE", raising=False)
 
 
@@ -271,9 +289,12 @@ def test_no_native_disables_both_libraries(fresh_loader, monkeypatch):
         raise AssertionError("built under HIPHASE_TPU_NO_NATIVE")
     monkeypatch.setattr(build, "build_host_library", no_build)
     monkeypatch.setattr(build, "build_sweep_library", no_build)
+    monkeypatch.setattr(build, "build_pack_library", no_build)
     monkeypatch.setenv("HIPHASE_TPU_NO_NATIVE", "1")
     assert not native.available()
     assert native.LOADED["origin"] is None
     assert not native.sweep_available()
     assert native.SWEEP_LOADED["path"] is None
+    assert not native.pack_available()
+    assert native.PACK_LOADED["path"] is None
     assert _sweep_path() == "python"

@@ -166,7 +166,8 @@ def test_align_reads_device_equals_jax_across_the_ladder():
     assert counters.as_dict() == {
         "reads": 4, "certified": {"32": 2, "128": 1}, "uncertified": 1,
         "band_calls": 3, "pairs_per_launch": 7 / 3,
-        "max_pairs_per_launch": 4, "h2d_copies": 0}
+        "max_pairs_per_launch": 4, "h2d_copies": 0,
+        "windows": {"native": 0, "python": 1}}
 
 
 def _ragged_pairs():
@@ -216,7 +217,8 @@ def test_batched_ladder_equals_the_per_read_ladder():
     one launch a rung."""
     pairs = _ragged_pairs()
     batched = port.WfaCounters()
-    got = port.align_pairs_device(pairs, CPU, counters=batched)
+    got = port.align_pairs_device(lambda: port.PairBatch.of_pairs(pairs),
+                                  CPU, counters=batched)
     single = port.WfaCounters()
     want = [port.align_reads_device(g, [r], CPU, counters=single)[0]
             for g, r in pairs]
@@ -245,7 +247,8 @@ def test_batched_ladder_in_launch_groups_equals_one_launch(monkeypatch):
     gives the one-launch results: every group writes its pairs' outputs at
     the batch's indices, one band call a group."""
     pairs = _ragged_pairs()
-    want = port.align_pairs_device(pairs, CPU)
+    want = port.align_pairs_device(lambda: port.PairBatch.of_pairs(pairs),
+                                   CPU)
     seen = []
 
     def threes(need, budget):
@@ -256,7 +259,8 @@ def test_batched_ladder_in_launch_groups_equals_one_launch(monkeypatch):
 
     monkeypatch.setattr(port, "_launch_groups", threes)
     counters = port.WfaCounters()
-    assert port.align_pairs_device(pairs, CPU, counters=counters) == want
+    assert port.align_pairs_device(lambda: port.PairBatch.of_pairs(pairs),
+                                   CPU, counters=counters) == want
     assert len(seen[0]) >= 3
     assert counters.band_calls == sum(len(g) for g in seen)
     assert counters.max_pairs_per_launch == 3
