@@ -10,15 +10,15 @@ the compiler's error is logged once as a warning and every caller falls
 back to its pure-Python implementation. ``HIPHASE_TPU_NO_NATIVE`` disables
 both libraries.
 
-Beside it, and at the same time, two libraries of the port's own: the A*
-oracle's heuristic sweep, built from ``hiphase_tpu_torch/csrc/astar_sweep.cc``
-(`kernels.build.build_sweep_library`; `astar_heuristic`), and the device
-WFA's window packer, built from ``hiphase_tpu_torch/csrc/wfa_pack.cc``
-(`kernels.build.build_pack_library`; `wfa_pack_sizes`, `wfa_pack_write`).
-Where one does not build, one warning, and its caller's Python path:
-`phasing.astar` sweeps in Python, dual mode's device WFA builds and
-linearises each window in Python. ``HIPHASE_TPU_NO_NATIVE`` disables them
-too.
+Beside it, and at the same time, the port's own library: its C++ twins of
+host loops, built from ``hiphase_tpu_torch/csrc/`` into one shared object
+(`kernels.build.build_port_library`, `bind_port`), also when the committed
+host library loads. It holds the A* oracle's heuristic sweep
+(`astar_heuristic`) and the device WFA's window packer (`wfa_pack_sizes`,
+`wfa_pack_write`). Where it does not build, one warning, and the callers'
+Python paths: `phasing.astar` sweeps in Python, dual mode's device WFA
+builds and linearises each window in Python. ``HIPHASE_TPU_NO_NATIVE``
+disables it too.
 """
 
 from __future__ import annotations
@@ -33,17 +33,15 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 _LIB = None
-_SWEEP = None
-_PACK = None
+_PORT = None
 _TRIED = False
 _LOAD_LOCK = threading.Lock()
 # what `_load` found: origin ("committed" or "built"), path, codec, the
 # build's seconds, or the error that left the host layer in pure Python
 LOADED: dict = {}
-# and for the sweep's and the packer's libraries: path and the build's
-# seconds, or the error
-SWEEP_LOADED: dict = {}
-PACK_LOADED: dict = {}
+# and for the port's own library: path and the build's seconds, or the
+# error
+PORT_LOADED: dict = {}
 
 
 def _ptr(arr: np.ndarray) -> ctypes.c_void_p:
@@ -91,22 +89,13 @@ def codec_of(lib) -> str:
 
 
 def _load():
-    global _LIB, _SWEEP, _PACK, _TRIED
+    global _LIB, _PORT, _TRIED
     if _TRIED:
         return _LIB
     with _LOAD_LOCK:
         if not _TRIED:
-            from hiphase_tpu_torch.kernels import build
             _LIB = _find_library()
-            _SWEEP = _find_own(
-                build.build_sweep_library, bind_sweep, SWEEP_LOADED,
-                "The A* sweep's native library is not available; the "
-                "estimated-cost sweep runs in Python.")
-            _PACK = _find_own(
-                build.build_pack_library, bind_pack, PACK_LOADED,
-                "The WFA window packer's native library is not available; "
-                "the device WFA's windows are built and linearised in "
-                "Python.")
+            _PORT = _find_own()
             _TRIED = True
     return _LIB
 
@@ -140,9 +129,9 @@ def _find_library():
     return lib
 
 
-def bind_sweep(path) -> ctypes.CDLL:
-    """Load the sweep's library at ``path``; raises OSError when it does
-    not load."""
+def bind_port(path) -> ctypes.CDLL:
+    """Load the port's own library at ``path`` and declare its entry
+    points' signatures; raises OSError when it does not load."""
     lib = ctypes.CDLL(str(path))
     lib.hn_astar_heuristic.restype = ctypes.c_int32
     lib.hn_astar_heuristic.argtypes = [
@@ -150,13 +139,6 @@ def bind_sweep(path) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_void_p]
-    return lib
-
-
-def bind_pack(path) -> ctypes.CDLL:
-    """Load the window packer's library at ``path``; raises OSError when it
-    does not load."""
-    lib = ctypes.CDLL(str(path))
     lib.hn_wfa_pack_windows.restype = ctypes.c_int64
     lib.hn_wfa_pack_windows.argtypes = (
         [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
@@ -166,21 +148,25 @@ def bind_pack(path) -> ctypes.CDLL:
     return lib
 
 
-def _find_own(build_fn, bind_fn, loaded: dict, unavailable: str):
-    """One of the port's own libraries (no committed copy): built, or found
-    in the cache, and bound; None, with one warning, when it is not."""
-    from hiphase_tpu_torch.kernels.build import KernelBuildError
+def _find_own():
+    """The port's own library (no committed copy): built, or found in the
+    cache, and bound; None, with one warning, when it is not."""
+    from hiphase_tpu_torch.kernels.build import (
+        KernelBuildError, build_port_library)
     if os.environ.get("HIPHASE_TPU_NO_NATIVE"):
-        loaded.update(path=None, error="HIPHASE_TPU_NO_NATIVE is set")
+        PORT_LOADED.update(path=None, error="HIPHASE_TPU_NO_NATIVE is set")
         return None
     try:
-        built = build_fn()
-        lib = bind_fn(built.library)
+        built = build_port_library()
+        lib = bind_port(built.library)
     except (KernelBuildError, OSError) as e:
-        logger.warning("%s %s", unavailable, e)
-        loaded.update(path=None, error=str(e))
+        logger.warning("The port's own native library is not available; the "
+                       "estimated-cost sweep runs in Python, and the device "
+                       "WFA's windows are built and linearised in Python. "
+                       "%s", e)
+        PORT_LOADED.update(path=None, error=str(e))
         return None
-    loaded.update(path=str(built.library), build_seconds=built.seconds)
+    PORT_LOADED.update(path=str(built.library), build_seconds=built.seconds)
     return lib
 
 
@@ -188,14 +174,9 @@ def available() -> bool:
     return _load() is not None
 
 
-def sweep_available() -> bool:
+def port_available() -> bool:
     _load()
-    return _SWEEP is not None
-
-
-def pack_available() -> bool:
-    _load()
-    return _PACK is not None
+    return _PORT is not None
 
 
 _INT64 = range(-2 ** 63, 2 ** 63)
@@ -212,7 +193,7 @@ def astar_heuristic(nv: int, max_segment_size: int, seg_start, seg_end,
     input is out of range or one of the Python sweep's assertions would
     fail."""
     _load()
-    lib = _SWEEP
+    lib = _PORT
     if (lib is None or min_queue_size not in _INT64
             or queue_increment not in _INT64 or max_segment_size >= 2 ** 31):
         return None
@@ -287,7 +268,7 @@ def wfa_pack_sizes(pack, chrom_seq: bytes, ref_start, ref_end, read_blob,
     its aligned bases read_blob[read_off[k]:read_off[k + 1]]. Returns the
     rows [n, PACK_INFO] int64, or None when the library is not bound."""
     _load()
-    lib = _PACK
+    lib = _PORT
     if lib is None:
         return None
     args, _keep = _pack_args(pack, chrom_seq, ref_start, ref_end, read_blob,
@@ -311,9 +292,9 @@ def wfa_pack_write(pack, chrom_seq: bytes, ref_start, ref_end, read_blob,
     window's (node, block variant index, allele) triples from tri_off[k].
     Returns (tri_node, tri_var, tri_val)."""
     _load()
-    lib = _PACK
+    lib = _PORT
     if lib is None:
-        raise RuntimeError("the WFA window packer's library is not bound")
+        raise RuntimeError("the port's own library is not bound")
     args, _keep = _pack_args(pack, chrom_seq, ref_start, ref_end, read_blob,
                              read_off)
     n = len(ref_start)

@@ -7,13 +7,15 @@ shared header and the flags, so an edited source rebuilds and an unchanged
 one is reused. Builds of several sources run as concurrent nvcc processes.
 ``csrc/hiphase_native.cc`` (the host library: BGZF, BAM and VCF scans,
 allele assignment, the C++ beam) becomes
-``build/libhiphase_native_<hash>.so`` the same way (`build_host_library`),
-``csrc/astar_sweep.cc`` (the A* oracle's heuristic sweep, no codec)
-``build/libastar_sweep_<hash>.so`` (`build_sweep_library`), and
-``csrc/wfa_pack.cc`` (the device WFA's window packer, no codec)
-``build/libwfa_pack_<hash>.so`` (`build_pack_library`). The host library
-and the packer include the one WFA graph builder, ``csrc/wfa_build.h``,
-and their hashes cover it.
+``build/libhiphase_native_<hash>.so`` the same way (`build_host_library`).
+The port's own C++ twins of host loops, `PORT_SOURCES` (the A* oracle's
+heuristic sweep ``csrc/astar_sweep.cc`` and the device WFA's window packer
+``csrc/wfa_pack.cc``), build with the host library's compiler and flags,
+no codec, into one library ``build/libhiphase_port_<hash>.so``
+(`build_port_library`). A new twin is one more source in `PORT_SOURCES`
+and its signature in `io.native.bind_port`. The host library and the
+packer include the one WFA graph builder, ``csrc/wfa_build.h``, and both
+hashes cover it.
 Every library is written under a temporary name and renamed into place, so
 concurrent processes never load a half-written file.
 """
@@ -36,9 +38,9 @@ HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_SOURCE = CSRC / "hiphase_native.cc"
-SWEEP_SOURCE = CSRC / "astar_sweep.cc"
-PACK_SOURCE = CSRC / "wfa_pack.cc"
-# the WFA graph builder, included by HOST_SOURCE and PACK_SOURCE
+# the port's own C++, compiled together into one library
+PORT_SOURCES = (CSRC / "astar_sweep.cc", CSRC / "wfa_pack.cc")
+# the WFA graph builder, included by HOST_SOURCE and wfa_pack.cc
 WFA_BUILD_HEADER = CSRC / "wfa_build.h"
 # no -march=native: the hash does not cover the host CPU, so a library
 # cached on one CPU may be loaded on another
@@ -178,7 +180,7 @@ def build_host_library(codec: str = "auto") -> BuiltHostLibrary:
         if lib.exists():
             return BuiltHostLibrary(lib, c, 0.0)
         value, libs = CODECS[c]
-        out = _compile(compiler, HOST_SOURCE, lib,
+        out = _compile(compiler, (HOST_SOURCE,), lib,
                        (*HOST_FLAGS, f"-DHN_CODEC={value}"), libs)
         if isinstance(out, float):
             return BuiltHostLibrary(lib, c, out)
@@ -187,49 +189,32 @@ def build_host_library(codec: str = "auto") -> BuiltHostLibrary:
                            + "\n".join(failures))
 
 
-def sweep_library_path() -> Path:
-    return _hashed_path("astar_sweep", (SWEEP_SOURCE,), HOST_FLAGS)
-
-
-def build_sweep_library() -> BuiltHostLibrary:
-    """Build (or find in the cache) the library of the A* oracle's
-    heuristic sweep (``hn_astar_heuristic``): the host library's compiler
-    and flags, no codec."""
-    return _build_plain(SWEEP_SOURCE, sweep_library_path(),
-                        "the A* sweep library")
-
-
-def pack_library_path() -> Path:
-    return _hashed_path("wfa_pack", (PACK_SOURCE, WFA_BUILD_HEADER),
+def port_library_path() -> Path:
+    return _hashed_path("hiphase_port", (*PORT_SOURCES, WFA_BUILD_HEADER),
                         HOST_FLAGS)
 
 
-def build_pack_library() -> BuiltHostLibrary:
-    """Build (or find in the cache) the library of the device WFA's window
-    packer (``hn_wfa_pack_windows``): the host library's compiler and
-    flags, no codec."""
-    return _build_plain(PACK_SOURCE, pack_library_path(),
-                        "the WFA window packer's library")
-
-
-def _build_plain(source: Path, lib: Path, what: str) -> BuiltHostLibrary:
-    """``source`` built with HOST_FLAGS into ``lib``, unless it is there."""
+def build_port_library() -> BuiltHostLibrary:
+    """Build (or find in the cache) the port's own library, every source of
+    `PORT_SOURCES` in one: the host library's compiler and flags, no
+    codec."""
+    lib = port_library_path()
     if lib.exists():
         return BuiltHostLibrary(lib, "none", 0.0)
-    out = _compile(cxx(), source, lib, HOST_FLAGS, ())
+    out = _compile(cxx(), PORT_SOURCES, lib, HOST_FLAGS, ())
     if isinstance(out, float):
         return BuiltHostLibrary(lib, "none", out)
-    raise KernelBuildError(f"{what} did not build:\n{out}")
+    raise KernelBuildError(f"the port's own library did not build:\n{out}")
 
 
-def _compile(compiler: str, source: Path, lib: Path, flags, libs
+def _compile(compiler: str, sources, lib: Path, flags, libs
              ) -> float | str:
-    """Compile ``source`` into ``lib`` through a temporary name; the
-    compiler's seconds, or its command and output when it failed."""
+    """Compile and link ``sources`` into ``lib`` through a temporary name;
+    the compiler's seconds, or its command and output when it failed."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(
         f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = [compiler, *flags, "-o", str(tmp), str(source), *libs]
+    cmd = [compiler, *flags, "-o", str(tmp), *map(str, sources), *libs]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)

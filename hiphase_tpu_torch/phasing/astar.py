@@ -221,7 +221,7 @@ def _native_astar_heuristic(num_variants, max_segment_size, read_segments,
                             min_queue_size, queue_increment, bad_variants):
     """`native.astar_heuristic` on the segments packed as they are (O(reads),
     no dense view), as Python lists; None where it does not run."""
-    if not native.sweep_available():
+    if not native.port_available():
         return None
     n = len(read_segments)
     seg_start = np.fromiter((rs.start for rs in read_segments), np.int32, n)

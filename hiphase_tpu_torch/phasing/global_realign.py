@@ -321,6 +321,56 @@ class _Ladder:
             self.disabled = True
 
 
+def _block_reads(phase_problem: PhaseBlock, bam_paths: list[str],
+                 min_mapq: int):
+    """The block's reads that pass the filters, BAM by BAM, in encounter
+    order."""
+    for bam_path in bam_paths:
+        bam = cached_alignment(bam_path)
+        for read in bam.fetch(phase_problem.chrom, phase_problem.start,
+                              phase_problem.end + 1):
+            if not filter_out_alignment_record(read, min_mapq):
+                yield read
+
+
+def _assign_in_order(reads, assign_global, phase_problem: PhaseBlock,
+                     variant_calls: list[Variant], local_pack,
+                     config: GlobalRealignmentConfig, read_groups,
+                     joint_stats: ReadStats) -> None:
+    """The failure ladder over a block's reads in encounter order (the
+    determinism contract, ref: read_parsing.rs:595-629): read i is assigned
+    by ``assign_global(i, read)`` (alleles, quals, stats; raises
+    WFAGraphError on max-ED, which sends the read to local realignment)
+    until the ladder trips, and by local realignment after it. Fills
+    ``read_groups`` and ``joint_stats``."""
+    ladder = _Ladder(config)
+    for i, read in enumerate(reads):
+        if ladder.disabled:
+            alleles, quals, read_stats = local_realignment(
+                read, variant_calls, pack=local_pack)
+        else:
+            try:
+                alleles, quals, read_stats = assign_global(i, read)
+            except WFAGraphError:
+                logger.debug("Reverting to local re-alignment for %s...",
+                             read.read_name)
+                alleles, quals, read_stats = local_realignment(
+                    read, variant_calls, pack=local_pack)
+
+        if read_stats.skipped_reads == 0:
+            read_groups.setdefault(read.read_name, []).append(
+                ReadSegment.new(read.read_name, alleles, quals))
+            assert read_stats.total_aligned() == 1
+            if not ladder.disabled:
+                ladder.record(read_stats.local_aligned > 0)
+                if ladder.disabled:
+                    logger.info(
+                        "B#%d Detected broad global realignment failure, "
+                        "reverting to local for the rest of the block.",
+                        phase_problem.block_index)
+        joint_stats += read_stats
+
+
 def _global_batch_chunk(raw, rec_off, rec_size, phase_problem, variant_calls,
                         hom_calls, reference_genome, config, wfa_pack,
                         local_pack, chrom_seq, ladder: _Ladder,
@@ -514,49 +564,14 @@ def load_full_read_segments(phase_problem: PhaseBlock, bam_paths: list[str],
         read_groups = {}
         joint_stats = ReadStats()
 
-    global_disabled = False
-    num_global_failures = 0.0
-    total_parsed = 0.0
-
-    for bam_path in bam_paths:
-        bam = cached_alignment(bam_path)
-        for read in bam.fetch(phase_problem.chrom, phase_problem.start,
-                              phase_problem.end + 1):
-            if filter_out_alignment_record(read, min_mapq):
-                continue
-            if global_disabled:
-                alleles, quals, read_stats = local_realignment(
-                    read, variant_calls, pack=local_pack)
-            else:
-                try:
-                    alleles, quals, read_stats, _score = global_realignment(
-                        phase_problem, read, variant_calls, hom_calls,
-                        reference_genome, config.wfa_prune_distance,
-                        config.max_edit_distance, wfa_pack=wfa_pack)
-                except WFAGraphError:
-                    logger.debug("Reverting to local re-alignment for %s...",
-                                 read.read_name)
-                    alleles, quals, read_stats = local_realignment(
-                        read, variant_calls, pack=local_pack)
-
-            if read_stats.skipped_reads == 0:
-                read_groups.setdefault(read.read_name, []).append(
-                    ReadSegment.new(read.read_name, alleles, quals))
-                assert read_stats.total_aligned() == 1
-                num_global_failures += read_stats.local_aligned
-                total_parsed += 1.0
-                if (not global_disabled
-                        and num_global_failures
-                        >= config.global_failure_minimum
-                        and num_global_failures / total_parsed
-                        >= config.global_failure_ratio):
-                    global_disabled = True
-                    logger.info(
-                        "B#%d Detected broad global realignment failure, "
-                        "reverting to local for the rest of the block.",
-                        phase_problem.block_index)
-            joint_stats += read_stats
-
+    _assign_in_order(
+        _block_reads(phase_problem, bam_paths, min_mapq),
+        lambda _i, read: global_realignment(
+            phase_problem, read, variant_calls, hom_calls, reference_genome,
+            config.wfa_prune_distance, config.max_edit_distance,
+            wfa_pack=wfa_pack)[:3],
+        phase_problem, variant_calls, local_pack, config, read_groups,
+        joint_stats)
     return _finish_groups(read_groups, joint_stats, min_matched_alleles)
 
 
@@ -717,17 +732,12 @@ def _load_full_read_segments_device(phase_problem, bam_paths, variant_calls,
     with spans.span("prepare.windows"):
         local_pack = build_variant_pack(variant_calls)
         wfa_pack = WfaBlockPack(variant_calls, hom_calls) \
-            if native_mod.pack_available() or native_mod.available() \
+            if native_mod.port_available() or native_mod.available() \
             else None
-        for bam_path in bam_paths:
-            bam = cached_alignment(bam_path)
-            for read in bam.fetch(phase_problem.chrom, phase_problem.start,
-                                  phase_problem.end + 1):
-                if filter_out_alignment_record(read, min_mapq):
-                    continue
-                reads.append(read)
-                windows.append(_aligned_span(read, variant_calls, hom_calls,
-                                             wfa_pack))
+        for read in _block_reads(phase_problem, bam_paths, min_mapq):
+            reads.append(read)
+            windows.append(_aligned_span(read, variant_calls, hom_calls,
+                                         wfa_pack))
     with_window = [i for i, w in enumerate(windows) if w is not None]
     pair_of = {i: k for k, i in enumerate(with_window)}
     aligned = [None] * len(reads)
@@ -744,53 +754,20 @@ def _load_full_read_segments_device(phase_problem, bam_paths, variant_calls,
         for i, r in zip(with_window, got):
             aligned[i] = r
 
+    def assign_global(i, _read):
+        if windows[i] is None:
+            return _device_assign(None, None, variant_calls,
+                                  config.wfa_prune_distance,
+                                  config.max_edit_distance)[:3]
+        return packed.assign(pair_of[i], aligned[i], variant_calls,
+                             config.wfa_prune_distance,
+                             config.max_edit_distance)
+
     # pass 2: the failure ladder in encounter order
     with spans.span("prepare.assign"):
         read_groups: dict[str, list[ReadSegment]] = {}
         joint_stats = ReadStats()
-        global_disabled = False
-        num_global_failures = 0.0
-        total_parsed = 0.0
-        for i, (read, window, result) in enumerate(zip(reads, windows,
-                                                       aligned)):
-            if global_disabled:
-                alleles, quals, read_stats = local_realignment(
-                    read, variant_calls, pack=local_pack)
-            else:
-                try:
-                    if window is None:
-                        alleles, quals, read_stats, _score = _device_assign(
-                            None, None, variant_calls,
-                            config.wfa_prune_distance,
-                            config.max_edit_distance)
-                    else:
-                        alleles, quals, read_stats = packed.assign(
-                            pair_of[i], result, variant_calls,
-                            config.wfa_prune_distance,
-                            config.max_edit_distance)
-                except WFAGraphError:
-                    logger.debug("Reverting to local re-alignment for %s...",
-                                 read.read_name)
-                    alleles, quals, read_stats = local_realignment(
-                        read, variant_calls, pack=local_pack)
-
-            if read_stats.skipped_reads == 0:
-                read_groups.setdefault(read.read_name, []).append(
-                    ReadSegment.new(read.read_name, alleles, quals))
-                assert read_stats.total_aligned() == 1
-                num_global_failures += read_stats.local_aligned
-                total_parsed += 1.0
-                if (not global_disabled
-                        and num_global_failures
-                        >= config.global_failure_minimum
-                        and num_global_failures / total_parsed
-                        >= config.global_failure_ratio):
-                    global_disabled = True
-                    logger.info(
-                        "B#%d Detected broad global realignment failure, "
-                        "reverting to local for the rest of the block.",
-                        phase_problem.block_index)
-            joint_stats += read_stats
-
+        _assign_in_order(reads, assign_global, phase_problem, variant_calls,
+                         local_pack, config, read_groups, joint_stats)
         return _finish_groups(read_groups, joint_stats,
                               min_matched_alleles)

@@ -36,20 +36,21 @@ CASES = {
 
 @pytest.fixture(scope="module")
 def sweep_lib():
-    """The sweep's library, built here (skips without a C++ compiler)."""
+    """The port's own library, which holds the sweep, built here (skips
+    without a C++ compiler)."""
     try:
-        built = build.build_sweep_library()
+        built = build.build_port_library()
     except build.KernelBuildError as e:
         if "no C++ compiler" in str(e):
             pytest.skip(str(e))
         raise
-    return native.bind_sweep(built.library)
+    return native.bind_port(built.library)
 
 
 def _use_sweep(monkeypatch, lib):
     """Bind the sweep to ``lib`` (None: the Python sweep)."""
     native._load()
-    monkeypatch.setattr(native, "_SWEEP", lib)
+    monkeypatch.setattr(native, "_PORT", lib)
 
 
 def _block(nv, cov, seed, reads):

@@ -9,8 +9,10 @@ BGZF that Python's gzip reads back exactly and read the committed
 library's BGZF; the zlib build must phase exactly as the committed library
 and the host A* oracle do; and the loader must try the committed library
 first, then the port's build, and neither under HIPHASE_TPU_NO_NATIVE.
-Beside either, the loader builds and binds the library of the A* oracle's
-heuristic sweep (csrc/astar_sweep.cc), or leaves the Python sweep.
+Beside either, the loader builds and binds the port's own library (the A*
+oracle's heuristic sweep, csrc/astar_sweep.cc, and the device WFA's window
+packer, csrc/wfa_pack.cc, in one), reused by the hash of its inputs, or
+leaves both Python paths with one warning.
 """
 
 import gzip
@@ -22,9 +24,11 @@ import numpy as np
 import pytest
 
 from hiphase_tpu_torch import cli
+from hiphase_tpu_torch.core.variants import Variant
 from hiphase_tpu_torch.io import native
 from hiphase_tpu_torch.kernels import build
 from hiphase_tpu_torch.phasing import astar
+from hiphase_tpu_torch.phasing.global_realign import WfaBlockPack
 from hiphase_tpu_torch.utils import golden
 
 from tests.sim import build_dataset
@@ -192,12 +196,10 @@ def test_cli_native_engine_on_the_zlib_build(libraries, tmp_path,
 @pytest.fixture
 def fresh_loader(monkeypatch):
     monkeypatch.setattr(native, "_LIB", None)
-    monkeypatch.setattr(native, "_SWEEP", None)
-    monkeypatch.setattr(native, "_PACK", None)
+    monkeypatch.setattr(native, "_PORT", None)
     monkeypatch.setattr(native, "_TRIED", False)
     monkeypatch.setattr(native, "LOADED", {})
-    monkeypatch.setattr(native, "SWEEP_LOADED", {})
-    monkeypatch.setattr(native, "PACK_LOADED", {})
+    monkeypatch.setattr(native, "PORT_LOADED", {})
     monkeypatch.delenv("HIPHASE_TPU_NO_NATIVE", raising=False)
 
 
@@ -216,32 +218,83 @@ def _sweep_path():
     return max(counts, key=counts.get)
 
 
+def _pack_path():
+    """Which path the device WFA's window packer takes on a small block:
+    "native" (`native.wfa_pack_sizes` sizes the window) or "python"."""
+    ref = b"ACGGT" * 60
+    hets = [Variant.new_snv(i, p, ref[p:p + 1], b"T", 0, 1)
+            for i, p in enumerate((40, 92, 151))]
+    rows = native.wfa_pack_sizes(WfaBlockPack(hets, []), ref, [30], [200],
+                                 np.frombuffer(ref[30:200], np.uint8),
+                                 [0, 170])
+    if rows is None:
+        return "python"
+    assert rows[0, 0] == 1
+    return "native"
+
+
+PATHS = {"sweep": _sweep_path, "pack": _pack_path}
+# what the warning says of each Python path
+FALLBACK = {"sweep": "the estimated-cost sweep runs in Python",
+            "pack": "windows are built and linearised in Python"}
+
+
+@pytest.mark.parametrize("twin", ["sweep", "pack"])
 @pytest.mark.parametrize("host", ["committed", "built"])
-def test_loader_binds_the_sweep_library_with_the_host_library(
-        libraries, fresh_loader, tmp_path, monkeypatch, host):
+def test_loader_binds_the_port_library_with_the_host_library(
+        libraries, fresh_loader, tmp_path, monkeypatch, host, twin):
     if host == "built":
         monkeypatch.setattr(native, "COMMITTED_PATH",
                             str(tmp_path / "none.so"))
     assert native.available()
     assert native.LOADED["origin"] == host
-    assert native.sweep_available()
-    assert native.SWEEP_LOADED["path"] == str(build.sweep_library_path())
-    assert _sweep_path() == "native"
+    assert native.port_available()
+    assert native.PORT_LOADED["path"] == str(build.port_library_path())
+    assert PATHS[twin]() == "native"
 
 
-def test_failed_sweep_build_leaves_the_python_sweep_with_one_warning(
-        fresh_loader, monkeypatch, caplog):
+@pytest.mark.parametrize("twin", ["sweep", "pack"])
+def test_failed_port_build_leaves_the_python_paths_with_one_warning(
+        fresh_loader, monkeypatch, caplog, twin):
     def refuse(*_a, **_kw):
-        raise build.KernelBuildError("g++: error: the sweep said no")
-    monkeypatch.setattr(build, "build_sweep_library", refuse)
+        raise build.KernelBuildError("g++: error: the port's twins said no")
+    monkeypatch.setattr(build, "build_port_library", refuse)
     with caplog.at_level(logging.WARNING, logger=native.__name__):
         assert native.available()
-        assert not native.sweep_available()
-        assert _sweep_path() == "python"
+        assert not native.port_available()
+        assert not native.port_available()
+        assert PATHS[twin]() == "python"
     warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
     assert len(warnings) == 1
-    assert "the sweep said no" in warnings[0].getMessage()
-    assert native.SWEEP_LOADED["path"] is None
+    assert "the port's twins said no" in warnings[0].getMessage()
+    assert FALLBACK[twin] in warnings[0].getMessage()
+    assert native.PORT_LOADED["path"] is None
+
+
+@pytest.mark.parametrize("edited", ["astar_sweep.cc", "wfa_pack.cc",
+                                    "wfa_build.h"])
+def test_port_library_is_reused_by_hash(tmp_path, monkeypatch, edited):
+    """The port's library builds once into the build directory and is found
+    by the hash of its sources and of the graph builder's header: an edit
+    to any of them moves its name, and one to the header, which the host
+    library includes too, also the host library's."""
+    built = build.build_port_library()
+    assert built.library == build.port_library_path()
+    assert built.library.parent == build.BUILD_DIR and built.library.exists()
+    assert built.library.name.startswith("libhiphase_port_")
+    again = build.build_port_library()
+    assert again.library == built.library and again.seconds == 0.0
+    copy = tmp_path / edited
+    copy.write_text((build.CSRC / edited).read_text() + "\n// edited\n")
+    host = build.host_library_path("zlib")
+    if edited == "wfa_build.h":
+        monkeypatch.setattr(build, "WFA_BUILD_HEADER", copy)
+    else:
+        monkeypatch.setattr(build, "PORT_SOURCES", tuple(
+            copy if p.name == edited else p for p in build.PORT_SOURCES))
+    assert build.port_library_path() != built.library
+    assert (build.host_library_path("zlib") != host) == (
+        edited == "wfa_build.h")
 
 
 def test_loader_takes_the_committed_library_first(fresh_loader,
@@ -288,13 +341,12 @@ def test_no_native_disables_both_libraries(fresh_loader, monkeypatch):
     def no_build(*_a, **_kw):
         raise AssertionError("built under HIPHASE_TPU_NO_NATIVE")
     monkeypatch.setattr(build, "build_host_library", no_build)
-    monkeypatch.setattr(build, "build_sweep_library", no_build)
-    monkeypatch.setattr(build, "build_pack_library", no_build)
+    monkeypatch.setattr(build, "build_port_library", no_build)
     monkeypatch.setenv("HIPHASE_TPU_NO_NATIVE", "1")
     assert not native.available()
     assert native.LOADED["origin"] is None
-    assert not native.sweep_available()
-    assert native.SWEEP_LOADED["path"] is None
-    assert not native.pack_available()
-    assert native.PACK_LOADED["path"] is None
+    assert not native.port_available()
+    assert native._PORT is None
+    assert native.PORT_LOADED["path"] is None
     assert _sweep_path() == "python"
+    assert _pack_path() == "python"

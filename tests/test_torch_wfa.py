@@ -292,31 +292,59 @@ def _noisy_dataset(tmp_path, seed, contig_len, coverage):
     return fasta, vcf, bam
 
 
-def test_dual_mode_trip_mid_block_matches_jax_host_wfa(tmp_path, caplog):
+@pytest.mark.parametrize("caller", ["device", "host_per_read"])
+def test_dual_mode_trip_mid_block_matches_jax_host_wfa(tmp_path, caplog,
+                                                       monkeypatch, caller):
     """A low --global-realignment-max-ed with a low --global-failure-count
     and ratio trips the failure ladder inside a block: the reads after the
-    trip go to local realignment, and the device-WFA output is
-    byte-identical to the JAX package's host WFA."""
+    trip go to local realignment, and the port's VCF, blocks and stats
+    files are byte-identical to the JAX package's host WFA, on the device
+    WFA and on the per-read host path (the host WFA with the native
+    libraries withheld)."""
     import gzip
     import logging
 
     from hiphase_tpu.cli import main as jax_cli_main
     from hiphase_tpu_torch import cli
+    from hiphase_tpu_torch.io import native
+    from hiphase_tpu_torch.phasing import global_realign as gr
 
     fasta, vcf, bam = _noisy_dataset(tmp_path, seed=31, contig_len=5000,
                                      coverage=12)
     flags = ["--global-realignment-max-ed", "4", "--global-failure-count",
              "3", "--max-global-failure-ratio", "0.3", "--threads", "1"]
+    # each walk of a block: (its reads, of them assigned globally)
+    walks = []
+    walk = gr._assign_in_order
+
+    def watched(reads, assign_global, *args):
+        reads, calls = list(reads), [0]
+
+        def counted(i, read):
+            calls[0] += 1
+            return assign_global(i, read)
+        walk(reads, counted, *args)
+        walks.append((len(reads), calls[0]))
+    monkeypatch.setattr(gr, "_assign_in_order", watched)
+    if caller == "host_per_read":
+        native._load()
+        for name, value in (("_LIB", None), ("_PORT", None),
+                            ("_TRIED", True)):
+            monkeypatch.setattr(native, name, value)
     outs = {}
     for name in ("port", "jax"):
-        o = (str(tmp_path / f"{name}.vcf.gz"), str(tmp_path / f"{name}.tsv"))
+        o = (str(tmp_path / f"{name}.vcf.gz"), str(tmp_path / f"{name}.tsv"),
+             str(tmp_path / f"{name}.csv"))
         argv = ["--bam", bam, "--vcf", vcf, "--reference", fasta,
-                "--output-vcf", o[0], "--blocks-file", o[1]] + flags
+                "--output-vcf", o[0], "--blocks-file", o[1],
+                "--stats-file", o[2]] + flags
         if name == "port":
             with caplog.at_level(logging.INFO):
                 assert cli.main(argv + ["--engine", "cuda", "--wfa-engine",
-                                        "device"], device=CPU) == 0
-            wfa = cli.LAST_RUN_STATS["wfa"]
+                                        "device" if caller == "device"
+                                        else "host"], device=CPU) == 0
+            if caller == "device":
+                wfa = cli.LAST_RUN_STATS["wfa"]
         else:
             assert jax_cli_main(argv + ["--engine", "native",
                                         "--wfa-engine", "host"]) == 0
@@ -325,7 +353,10 @@ def test_dual_mode_trip_mid_block_matches_jax_host_wfa(tmp_path, caplog):
              if "reverting to local for the rest" in r.getMessage()]
     assert trips, "the failure ladder did not trip"
     # the trip comes after a few reads of a block, not at its end
-    assert wfa["reads"] > 10 * len(trips)
+    if caller == "device":
+        assert wfa["reads"] > 10 * len(trips)
+    tripped = [(n, g) for n, g in walks if g < n]
+    assert tripped and all(g >= 3 for _n, g in tripped)
 
     def body(path):
         return [x for x in gzip.open(path).read().split(b"\n")
@@ -333,8 +364,11 @@ def test_dual_mode_trip_mid_block_matches_jax_host_wfa(tmp_path, caplog):
 
     assert len(body(outs["port"][0])) > 20
     assert body(outs["port"][0]) == body(outs["jax"][0])
-    with open(outs["port"][1], "rb") as a, open(outs["jax"][1], "rb") as b:
-        assert a.read() == b.read()
+    # the stats file's global_aligned / local_aligned say where it tripped
+    for k in (1, 2):
+        with open(outs["port"][k], "rb") as a, \
+                open(outs["jax"][k], "rb") as b:
+            assert a.read() == b.read()
 
 
 def _port_result(graph, seq):

@@ -7,13 +7,11 @@ window graph of a block in C++ straight into the kernel's batch layout
 (node, variant, allele) triples must be `read_window`'s node_to_alleles
 shifted to the block's variant indices, a window the builder refuses must
 take the Python path, and a whole job must write the same bytes with and
-without the packer. Its library builds beside the host library, is reused
-by hash, and leaves the Python path, with one warning, when it does not
-build.
+without the packer. How its library (the port's own) is built and loaded
+is tested in tests/test_torch_native_build.py.
 """
 
 import functools
-import logging
 import pathlib
 
 import numpy as np
@@ -25,7 +23,6 @@ from hiphase_tpu_torch.align import wfa_device
 from hiphase_tpu_torch.align.wfa_graph import WFAGraph
 from hiphase_tpu_torch.core.variants import Variant
 from hiphase_tpu_torch.io import native
-from hiphase_tpu_torch.kernels import build
 from hiphase_tpu_torch.phasing import global_realign as gr
 from hiphase_tpu_torch.utils import simulate
 
@@ -105,7 +102,7 @@ def test_packed_blocks_equal_the_python_linearisation(tmp_path, monkeypatch,
                           "indel", "hom", "window_past_block"), 0)
     monkeypatch.setattr(wfa_device, "align_pairs_device",
                         _checking_ladder(seen))
-    assert native.pack_available()
+    assert native.port_available()
     out = tmp_path / "o.vcf.gz"
     assert cli.main(["--bam", data["bam"], "--vcf", data["vcf"],
                      "--reference", data["fasta"], "--output-vcf", str(out),
@@ -201,9 +198,9 @@ def test_without_the_packer_every_window_takes_the_python_path(monkeypatch,
     from the Python windows."""
     ref, hets, homs = _over_capacity_block()
     pack = gr.WfaBlockPack(hets, homs)
-    native.pack_available()
+    native.port_available()
     if withheld == "library":
-        monkeypatch.setattr(native, "_PACK", None)
+        monkeypatch.setattr(native, "_PORT", None)
     else:
         pack = None
     windows = [(60, 180, 1, 3, 0, 0), (0, 300, 0, 5, 0, 1)]
@@ -245,14 +242,14 @@ def test_job_outputs_equal_with_and_without_the_packer(tmp_path,
     the packer and with its library withheld; the window counter says
     which linearised each window."""
     fasta, vcf, bam = _mixed_dataset(tmp_path, seed=17)
-    native.pack_available()
+    native.port_available()
     outs, windows = {}, {}
     # both runs write the same paths: the VCF header holds the command line
     o = {x: tmp_path / f"out.{x}" for x in
          ("vcf.gz", "blocks.tsv", "stats.csv", "summary.tsv")}
     for name in ("packer", "python"):
         if name == "python":
-            monkeypatch.setattr(native, "_PACK", None)
+            monkeypatch.setattr(native, "_PORT", None)
         assert cli.main(["--bam", bam, "--vcf", vcf, "--reference", fasta,
                          "--output-vcf", str(o["vcf.gz"]),
                          "--blocks-file", str(o["blocks.tsv"]),
@@ -269,56 +266,3 @@ def test_job_outputs_equal_with_and_without_the_packer(tmp_path,
     assert windows["python"][1] == {"native": 0, "python": reads}
     for x in outs["packer"]:
         assert outs["packer"][x] == outs["python"][x], x
-
-
-@pytest.fixture
-def fresh_loader(monkeypatch):
-    for name, value in (("_LIB", None), ("_SWEEP", None), ("_PACK", None),
-                        ("_TRIED", False), ("LOADED", {}),
-                        ("SWEEP_LOADED", {}), ("PACK_LOADED", {})):
-        monkeypatch.setattr(native, name, value)
-    monkeypatch.delenv("HIPHASE_TPU_NO_NATIVE", raising=False)
-
-
-def test_pack_library_is_reused_by_hash(tmp_path, monkeypatch):
-    """The packer's library builds once and is found by the hash of its
-    source and of the builder's header, which it shares with the host
-    library."""
-    built = build.build_pack_library()
-    assert built.library == build.pack_library_path()
-    assert built.library.parent == build.BUILD_DIR and built.library.exists()
-    again = build.build_pack_library()
-    assert again.library == built.library and again.seconds == 0.0
-    edited = tmp_path / "wfa_build.h"
-    edited.write_text(build.WFA_BUILD_HEADER.read_text() + "\n// edited\n")
-    host = build.host_library_path("zlib")
-    monkeypatch.setattr(build, "WFA_BUILD_HEADER", edited)
-    assert build.pack_library_path() != built.library
-    assert build.host_library_path("zlib") != host
-
-
-def test_loader_binds_the_packer_with_the_committed_host_library(
-        fresh_loader):
-    assert native.available()
-    assert native.LOADED["origin"] == "committed"
-    assert native.pack_available()
-    assert native.PACK_LOADED["path"] == str(build.pack_library_path())
-
-
-def test_failed_pack_build_leaves_the_python_path_with_one_warning(
-        fresh_loader, monkeypatch, caplog):
-    def refuse(*_a, **_kw):
-        raise build.KernelBuildError("g++: error: the packer said no")
-    monkeypatch.setattr(build, "build_pack_library", refuse)
-    with caplog.at_level(logging.WARNING, logger=native.__name__):
-        assert native.available()
-        assert not native.pack_available()
-        assert not native.pack_available()
-    warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
-    assert len(warnings) == 1
-    assert "the packer said no" in warnings[0].getMessage()
-    assert native.PACK_LOADED["path"] is None
-    ref, hets, homs = _over_capacity_block()
-    assert native.wfa_pack_sizes(gr.WfaBlockPack(hets, homs), ref,
-                                 [0], [300], np.zeros(1, np.uint8),
-                                 [0, 1]) is None
