@@ -237,7 +237,8 @@ class PairBatch:
         self.spread = np.array([graphs[i].spread for i in sg], np.int64)
         for g, go, no in zip(graphs, g_off, n_off):
             self._put(g, go, no)
-        self._put_reads(reads)
+        self._put_reads(np.frombuffer(b"".join(reads), np.uint8),
+                        np.cumsum([0] + [len(r) for r in reads]))
 
     @classmethod
     def of_pairs(cls, pairs: list[tuple]) -> PairBatch:
@@ -248,9 +249,10 @@ class PairBatch:
 
     @classmethod
     def from_windows(cls, pack, chrom_seq: bytes, ref_start, ref_end,
-                     reads: list[bytes], python_graph):
-        """Read k against the graph of its window [ref_start[k], ref_end[k])
-        of ``chrom_seq`` over the block's variants ``pack`` (a
+                     read_blob, read_off, python_graph):
+        """Read k, read_blob[read_off[k]:read_off[k + 1]], against the graph
+        of its window [ref_start[k], ref_end[k]) of ``chrom_seq`` over the
+        block's variants ``pack`` (a
         `phasing.global_realign.WfaBlockPack`), one graph a pair. The native
         window packer (csrc/wfa_pack.cc: `io.native.wfa_pack_sizes`, then
         `wfa_pack_write`) builds and writes each window's graph; a window it
@@ -262,11 +264,9 @@ class PairBatch:
         val)."""
         from hiphase_tpu_torch.io import native
 
-        n = len(reads)
-        rlen = np.fromiter(map(len, reads), np.int64, n)
-        read_off = np.concatenate([[0], np.cumsum(rlen)]).astype(np.int64)
-        args = (pack, chrom_seq, ref_start, ref_end,
-                np.frombuffer(b"".join(reads), np.uint8), read_off)
+        n = len(ref_start)
+        rlen = np.diff(read_off)
+        args = (pack, chrom_seq, ref_start, ref_end, read_blob, read_off)
         info = native.wfa_pack_sizes(*args) if pack is not None else None
         if info is None:
             info = np.zeros((n, native.PACK_INFO), np.int64)
@@ -292,7 +292,7 @@ class PairBatch:
                 self.sections, self.flat, tri_off)
         else:
             triples = (np.zeros(0, np.int32),) * 3
-            self._put_reads(reads)
+            self._put_reads(read_blob, read_off)
         for k, g in graphs.items():
             self._put(g, self.goff[k], self.gnoff[k])
         return self, built, (tri_off, *triples)
@@ -332,11 +332,13 @@ class PairBatch:
             rows[:] = fill
             rows[:, :table.shape[1]] = table
 
-    def _put_reads(self, reads: list[bytes]) -> None:
+    def _put_reads(self, read_blob, read_off) -> None:
+        """Pair b's read, read_blob[read_off[b]:read_off[b + 1]], at its
+        read-byte offset."""
         s = self.sections
         read_bytes = self.flat[s[3]:s[4]].view(np.uint8)
-        for off, r in zip(self.roff, reads):
-            read_bytes[off:off + len(r)] = np.frombuffer(bytes(r), np.uint8)
+        for off, lo, hi in zip(self.roff, read_off[:-1], read_off[1:]):
+            read_bytes[off:off + hi - lo] = read_blob[lo:hi]
 
     def upload(self, device: torch.device):
         """(pos [ΣG, 2] int32, par_idx, par_shift [ΣN, P] int32, reads [R]
@@ -707,6 +709,9 @@ class WfaCounters:
     # in Python (`linearize_graph`)
     windows: dict = field(default_factory=lambda: {"native": 0,
                                                    "python": 0})
+    # blocks whose pass 1 (each read's window and aligned bases) ran in C++
+    # (csrc/wfa_windows.cc) or in Python
+    pass1: dict = field(default_factory=lambda: {"native": 0, "python": 0})
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
 
@@ -729,6 +734,10 @@ class WfaCounters:
             self.windows["native"] += native
             self.windows["python"] += python
 
+    def add_pass1(self, native: bool) -> None:
+        with self._lock:
+            self.pass1["native" if native else "python"] += 1
+
     def as_dict(self) -> dict:
         with self._lock:
             return {"reads": self.reads,
@@ -741,7 +750,8 @@ class WfaCounters:
                         if self.band_calls else 0.0),
                     "max_pairs_per_launch": self.max_pairs_per_launch,
                     "h2d_copies": self.h2d_copies,
-                    "windows": dict(self.windows)}
+                    "windows": dict(self.windows),
+                    "pass1": dict(self.pass1)}
 
 
 def _own_stream(device: torch.device):

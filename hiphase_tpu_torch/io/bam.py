@@ -426,8 +426,9 @@ class BamReader:
 
         Returns a list of (buf, rec_off, rec_size) for records that overlap
         [start, end), pass the flag mask, and meet ``min_mapq`` — the same
-        set `fetch` + `filter_out_alignment_record` yields — or None when
-        the native library (or the index) is unavailable.
+        records, in the same order, as `fetch` + `filter_out_alignment_record`
+        yields — or None when the native library (or the index) is
+        unavailable.
         """
         from hiphase_tpu_torch.io import native
         import numpy as np
@@ -452,21 +453,27 @@ class BamReader:
             self._rawfh.seek(c1)
             head = self._rawfh.read(18)
             span_end = c1
+            last_isize = 0   # the uncompressed bytes of cend's block
             if (cend & 0xFFFF) and len(head) >= 18:
                 span_end = c1 + (struct.unpack_from("<H", head, 16)[0] + 1)
+                self._rawfh.seek(span_end - 4)
+                last_isize = struct.unpack("<I", self._rawfh.read(4))[0]
             raw = self._read_span_cached(c0, span_end)
             if raw is None:
                 return None
+            # cend in raw: `fetch` reads the records that begin before it;
+            # those after it in cend's block belong to later chunks
+            stop = len(raw) - last_isize + (cend & 0xFFFF) - (cbeg & 0xFFFF)
             raw = raw[cbeg & 0xFFFF:]
             scan = native.bam_scan_records(raw, name_blob, name_off)
             if scan is None:
                 return None
             (rtid, pos, rend, mapq, flag, rec_off, rec_size,
              *_sa, _consumed) = scan
-            import numpy as _np
             keep = ((rtid == tid) & (pos < end)
-                    & (_np.maximum(rend, pos + 1) > start)
-                    & ((flag & bad_flags) == 0) & (mapq >= min_mapq))
+                    & (np.maximum(rend, pos + 1) > start)
+                    & ((flag & bad_flags) == 0) & (mapq >= min_mapq)
+                    & (rec_off - 4 < stop))   # past the size prefix
             if keep.any():
                 out.append((raw, rec_off[keep], rec_size[keep]))
         return out

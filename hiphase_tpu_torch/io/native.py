@@ -14,11 +14,11 @@ Beside it, and at the same time, the port's own library: its C++ twins of
 host loops, built from ``hiphase_tpu_torch/csrc/`` into one shared object
 (`kernels.build.build_port_library`, `bind_port`), also when the committed
 host library loads. It holds the A* oracle's heuristic sweep
-(`astar_heuristic`) and the device WFA's window packer (`wfa_pack_sizes`,
-`wfa_pack_write`). Where it does not build, one warning, and the callers'
-Python paths: `phasing.astar` sweeps in Python, dual mode's device WFA
-builds and linearises each window in Python. ``HIPHASE_TPU_NO_NATIVE``
-disables it too.
+(`astar_heuristic`), the device WFA's pass 1 (`wfa_windows`) and its window
+packer (`wfa_pack_sizes`, `wfa_pack_write`). Where it does not build, one
+warning, and the callers' Python paths: `phasing.astar` sweeps in Python,
+dual mode's device WFA finds each read's window and builds and linearises
+it in Python. ``HIPHASE_TPU_NO_NATIVE`` disables it too.
 """
 
 from __future__ import annotations
@@ -139,6 +139,10 @@ def bind_port(path) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_void_p]
+    lib.hn_wfa_windows.restype = ctypes.c_int64
+    lib.hn_wfa_windows.argtypes = (
+        [ctypes.c_int64] + [ctypes.c_void_p] * 5 + [ctypes.c_int64]
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p])
     lib.hn_wfa_pack_windows.restype = ctypes.c_int64
     lib.hn_wfa_pack_windows.argtypes = (
         [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
@@ -161,8 +165,9 @@ def _find_own():
         lib = bind_port(built.library)
     except (KernelBuildError, OSError) as e:
         logger.warning("The port's own native library is not available; the "
-                       "estimated-cost sweep runs in Python, and the device "
-                       "WFA's windows are built and linearised in Python. "
+                       "estimated-cost sweep runs in Python, the device "
+                       "WFA's pass 1 finds each read's window in Python, "
+                       "and the windows are built and linearised in Python. "
                        "%s", e)
         PORT_LOADED.update(path=None, error=str(e))
         return None
@@ -217,6 +222,48 @@ def astar_heuristic(nv: int, max_segment_size: int, seg_start, seg_end,
     if rc != 0:
         return None
     return heuristics, bad.astype(bool)
+
+
+def wfa_windows(chunks, het_pos):
+    """Pass 1 of the device WFA over a block's reads in C++ (hn_wfa_windows
+    in csrc/wfa_windows.cc; the call releases the interpreter lock):
+    ``chunks`` are `io.bam.BamReader.fetch_raw`'s (buf, rec_off, rec_size)
+    of the block's BAMs in order, ``het_pos`` the block's het positions.
+    Returns (has_window [n] bool, ref_start, ref_end, read_blob, read_off)
+    for the n records in order, read k's window [ref_start[k], ref_end[k])
+    and its aligned bases read_blob[read_off[k]:read_off[k + 1]] (empty
+    where it has no window); or None when the library is not bound or the
+    call refuses the block (global_realign's Python pass 1 then runs)."""
+    _load()
+    lib = _PORT
+    if lib is None:
+        return None
+    bufs = [np.ascontiguousarray(b, dtype=np.uint8) for b, _o, _s in chunks]
+    rec_off = np.concatenate(
+        [np.zeros(0, np.int64)] + [o for _b, o, _s in chunks]).astype(np.int64)
+    rec_size = np.concatenate(
+        [np.zeros(0, np.int64)] + [s for _b, _o, s in chunks]).astype(np.int64)
+    chunk_ptr = np.array([b.ctypes.data for b in bufs], np.uint64)
+    chunk_len = np.array([len(b) for b in bufs], np.int64)
+    chunk_first = np.cumsum([0] + [len(o) for _b, o, _s in chunks],
+                            dtype=np.int64)
+    n = len(rec_off)
+    het_pos = np.ascontiguousarray(het_pos, dtype=np.int64)
+    has_window = np.zeros(n, np.uint8)
+    ref_start = np.zeros(n, np.int64)
+    ref_end = np.zeros(n, np.int64)
+    read_off = np.zeros(n + 1, np.int64)
+    # the aligned bases of a read are fewer than its record's bytes
+    read_blob = np.empty(int(rec_size.sum()), np.uint8)
+    rc = lib.hn_wfa_windows(
+        len(bufs), _ptr(chunk_ptr), _ptr(chunk_len), _ptr(chunk_first),
+        _ptr(rec_off), _ptr(rec_size), len(het_pos), _ptr(het_pos),
+        _ptr(has_window), _ptr(ref_start), _ptr(ref_end), _ptr(read_blob),
+        len(read_blob), _ptr(read_off))
+    if rc < 0:
+        return None
+    return (has_window.astype(bool), ref_start, ref_end,
+            read_blob[:read_off[-1]], read_off)
 
 
 # columns of a window's row in `wfa_pack_sizes`: built (1) or refused (0),

@@ -9,13 +9,13 @@ one is reused. Builds of several sources run as concurrent nvcc processes.
 allele assignment, the C++ beam) becomes
 ``build/libhiphase_native_<hash>.so`` the same way (`build_host_library`).
 The port's own C++ twins of host loops, `PORT_SOURCES` (the A* oracle's
-heuristic sweep ``csrc/astar_sweep.cc`` and the device WFA's window packer
-``csrc/wfa_pack.cc``), build with the host library's compiler and flags,
-no codec, into one library ``build/libhiphase_port_<hash>.so``
-(`build_port_library`). A new twin is one more source in `PORT_SOURCES`
-and its signature in `io.native.bind_port`. The host library and the
-packer include the one WFA graph builder, ``csrc/wfa_build.h``, and both
-hashes cover it.
+heuristic sweep ``csrc/astar_sweep.cc``, the device WFA's pass 1
+``csrc/wfa_windows.cc`` and its window packer ``csrc/wfa_pack.cc``), build
+with the host library's compiler and flags, no codec, into one library
+``build/libhiphase_port_<hash>.so`` (`build_port_library`). A new twin is
+one more source in `PORT_SOURCES` and its signature in
+`io.native.bind_port`. The host library and the packer include the one
+WFA graph builder, ``csrc/wfa_build.h``, and both hashes cover it.
 Every library is written under a temporary name and renamed into place, so
 concurrent processes never load a half-written file.
 """
@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_SOURCE = CSRC / "hiphase_native.cc"
 # the port's own C++, compiled together into one library
-PORT_SOURCES = (CSRC / "astar_sweep.cc", CSRC / "wfa_pack.cc")
+PORT_SOURCES = (CSRC / "astar_sweep.cc", CSRC / "wfa_windows.cc",
+                CSRC / "wfa_pack.cc")
 # the WFA graph builder, included by HOST_SOURCE and wfa_pack.cc
 WFA_BUILD_HEADER = CSRC / "wfa_build.h"
 # no -march=native: the hash does not cover the host CPU, so a library

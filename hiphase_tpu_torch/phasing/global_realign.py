@@ -17,7 +17,10 @@ Two aligners, chosen by ``--wfa-engine``:
   * ``device`` — the banded graph DP of `align.wfa_device` on an explicit
     torch device, in two passes over a block's reads: pass 1 finds every
     read's window and aligns all of them in one batched band ladder (a few
-    kernel launches per block); pass 2 walks the reads in BAM order as the
+    kernel launches per block). Where the block's BAMs fetch raw, pass 1
+    finds the windows in C++, one call over the block's raw records
+    (``csrc/wfa_windows.cc``, `_native_pass1`), and in Python
+    (`_aligned_span`) elsewhere. Pass 2 walks the reads in BAM order as the
     host path does — the host aligner for reads the ladder could not
     certify (the reference's exactness rule, not a device fallback),
     ``WFAGraphError`` when the device score exceeds
@@ -648,23 +651,22 @@ def _device_assign(window, aligned, variant_calls: list[Variant],
 
 class _PackedWindows:
     """A block's read windows for the ladder. Pass 1 gives each read's
-    aligned bases and window (`_aligned_span`); `batch`, which the ladder
-    calls inside its span, packs them (`wfa_device.PairBatch.from_windows`:
-    the native window packer, and `read_window` for the windows it
-    refuses); `assign` gives a read's alleles from the packer's triples
-    where the ladder certified it, and from its Python window (`window`,
-    built on demand) elsewhere."""
+    window [ref_start[k], ref_end[k]) and aligned bases
+    read_blob[read_off[k]:read_off[k + 1]]; `batch`, which the ladder calls
+    inside its span, packs them (`wfa_device.PairBatch.from_windows`: the
+    native window packer, and `read_window` for the windows it refuses);
+    `assign` gives a read's alleles from the packer's triples where the
+    ladder certified it, and from its Python window (`window`, built on
+    demand) elsewhere."""
 
     def __init__(self, wfa_pack: WfaBlockPack | None, chrom_seq: bytes,
-                 spans: list[tuple], python_window):
+                 ref_start, ref_end, read_blob, read_off, python_window):
         self.wfa_pack = wfa_pack
         self.chrom_seq = chrom_seq
-        self.read_align = [a[0] for a in spans]
-        # a window is [min_position, max_position + 1)
-        self.ref_start = np.fromiter((a[1] for a in spans), np.int64,
-                                     len(spans))
-        self.ref_end = np.fromiter((a[2] + 1 for a in spans), np.int64,
-                                   len(spans))
+        self.ref_start = np.asarray(ref_start, np.int64)
+        self.ref_end = np.asarray(ref_end, np.int64)
+        self.read_blob = np.asarray(read_blob, np.uint8)
+        self.read_off = np.asarray(read_off, np.int64)
         self._python_window = python_window     # pair index → read_window
         self._windows: dict[int, tuple] = {}
         self.native = None
@@ -683,7 +685,7 @@ class _PackedWindows:
 
         batch, self.native, self.triples = PairBatch.from_windows(
             self.wfa_pack, self.chrom_seq, self.ref_start, self.ref_end,
-            self.read_align, lambda k: self.window(k)[1])
+            self.read_blob, self.read_off, lambda k: self.window(k)[1])
         return batch
 
     def assign(self, k: int, aligned, variant_calls: list[Variant],
@@ -713,39 +715,100 @@ class _PackedWindows:
         return alleles, quals, stats
 
 
+def _native_pass1(phase_problem: PhaseBlock, bam_paths: list[str],
+                  min_mapq: int, wfa_pack: WfaBlockPack):
+    """Pass 1 in C++ (`io.native.wfa_windows`), one call over the raw
+    records of the block's BAMs (`BamReader.fetch_raw`): the reads, as
+    `_block_reads` gives them, and (has_window [reads], then for the reads
+    with a window: ref_start, ref_end, read_blob, read_off). None where a
+    BAM cannot be fetched raw (CRAM, no index, no host library), the
+    port's library is not bound, or the call refuses a record."""
+    from hiphase_tpu_torch.io import native
+
+    if not native.port_available():
+        return None
+    chunks = []
+    for bam_path in bam_paths:
+        got = cached_alignment(bam_path).fetch_raw(
+            phase_problem.chrom, phase_problem.start, phase_problem.end + 1,
+            min_mapq)
+        if got is None:
+            return None
+        chunks += got
+    out = native.wfa_windows(chunks, wfa_pack.het_pos)
+    if out is None:
+        return None
+    has_window, ref_start, ref_end, read_blob, read_off = out
+    reads = [BamRecord.parse(buf[o:o + n].tobytes())
+             for buf, rec_off, rec_size in chunks
+             for o, n in zip(rec_off.tolist(), rec_size.tolist())]
+    # a read without a window has no bases: the pairs' offsets are those
+    # of the reads with one, then the end
+    pairs = np.flatnonzero(has_window)
+    return reads, (has_window, ref_start[pairs], ref_end[pairs], read_blob,
+                   np.append(read_off[pairs], read_off[-1]))
+
+
+def _python_pass1(phase_problem: PhaseBlock, bam_paths: list[str],
+                  min_mapq: int, variant_calls: list[Variant],
+                  hom_calls: list[Variant], wfa_pack: WfaBlockPack | None):
+    """Pass 1 in Python, read by read (`_block_reads`, `_aligned_span`):
+    what `_native_pass1` returns."""
+    reads = list(_block_reads(phase_problem, bam_paths, min_mapq))
+    spans = [_aligned_span(read, variant_calls, hom_calls, wfa_pack)
+             for read in reads]
+    has_window = np.array([a is not None for a in spans], bool)
+    return reads, (has_window,
+                   *_window_arrays([a for a in spans if a is not None]))
+
+
+def _window_arrays(spans: list[tuple]):
+    """`_aligned_span`'s tuples as the arrays `_PackedWindows` takes:
+    ref_start, ref_end, read_blob, read_off."""
+    # a window is [min_position, max_position + 1)
+    return ([a[1] for a in spans], [a[2] + 1 for a in spans],
+            np.frombuffer(b"".join(a[0] for a in spans), np.uint8),
+            np.cumsum([0] + [len(a[0]) for a in spans]))
+
+
 def _load_full_read_segments_device(phase_problem, bam_paths, variant_calls,
                                     hom_calls, reference_genome,
                                     min_matched_alleles, min_mapq, config,
                                     device, counters, spans):
-    """``--wfa-engine device``: pass 1 finds every read's window and aligns
-    all windows of the block in one batched band ladder; pass 2 walks the
-    reads in BAM order exactly as the per-read path does. Spans: pass 1's
-    windows ``prepare.windows`` (the fetch, the overlap search and the
-    read's aligned bases), the ladder ``wfa.ladder`` (the windows' graphs
-    and its waits), pass 2 ``prepare.assign``."""
+    """``--wfa-engine device``: pass 1 finds every read's window
+    (`_native_pass1`, else `_python_pass1`) and aligns all windows of the
+    block in one batched band ladder; pass 2 walks the reads in BAM order
+    exactly as the per-read path does. Spans: pass 1's windows
+    ``prepare.windows`` (the fetch, the overlap search and the read's
+    aligned bases; the records' parse on the native path), the ladder
+    ``wfa.ladder`` (the windows' graphs and its waits), pass 2
+    ``prepare.assign``."""
     from hiphase_tpu_torch.align.wfa_device import align_pairs_device
     from hiphase_tpu_torch.io import native as native_mod
     from hiphase_tpu_torch.phasing.variant_pack import build_variant_pack
 
     # pass 1: windows of every read, then one ladder over all of them
-    reads, windows = [], []
     with spans.span("prepare.windows"):
         local_pack = build_variant_pack(variant_calls)
         wfa_pack = WfaBlockPack(variant_calls, hom_calls) \
             if native_mod.port_available() or native_mod.available() \
             else None
-        for read in _block_reads(phase_problem, bam_paths, min_mapq):
-            reads.append(read)
-            windows.append(_aligned_span(read, variant_calls, hom_calls,
-                                         wfa_pack))
-    with_window = [i for i, w in enumerate(windows) if w is not None]
+        found = _native_pass1(phase_problem, bam_paths, min_mapq, wfa_pack) \
+            if wfa_pack is not None else None
+        if counters is not None:
+            counters.add_pass1(found is not None)
+        if found is None:
+            found = _python_pass1(phase_problem, bam_paths, min_mapq,
+                                  variant_calls, hom_calls, wfa_pack)
+        reads, (has_window, *windows) = found
+    with_window = np.flatnonzero(has_window).tolist()
     pair_of = {i: k for k, i in enumerate(with_window)}
     aligned = [None] * len(reads)
     if with_window:
         packed = _PackedWindows(
             wfa_pack,
             reference_genome.get_full_chromosome(phase_problem.chrom),
-            [windows[i] for i in with_window],
+            *windows,
             lambda k: read_window(phase_problem, reads[with_window[k]],
                                   variant_calls, hom_calls, reference_genome,
                                   config.max_edit_distance, wfa_pack))
@@ -755,7 +818,7 @@ def _load_full_read_segments_device(phase_problem, bam_paths, variant_calls,
             aligned[i] = r
 
     def assign_global(i, _read):
-        if windows[i] is None:
+        if not has_window[i]:
             return _device_assign(None, None, variant_calls,
                                   config.wfa_prune_distance,
                                   config.max_edit_distance)[:3]

@@ -10,9 +10,10 @@ library's BGZF; the zlib build must phase exactly as the committed library
 and the host A* oracle do; and the loader must try the committed library
 first, then the port's build, and neither under HIPHASE_TPU_NO_NATIVE.
 Beside either, the loader builds and binds the port's own library (the A*
-oracle's heuristic sweep, csrc/astar_sweep.cc, and the device WFA's window
-packer, csrc/wfa_pack.cc, in one), reused by the hash of its inputs, or
-leaves both Python paths with one warning.
+oracle's heuristic sweep, csrc/astar_sweep.cc, the device WFA's pass 1,
+csrc/wfa_windows.cc, and its window packer, csrc/wfa_pack.cc, in one),
+reused by the hash of its inputs, or leaves every Python path with one
+warning.
 """
 
 import gzip
@@ -233,13 +234,28 @@ def _pack_path():
     return "native"
 
 
-PATHS = {"sweep": _sweep_path, "pack": _pack_path}
+def _windows_path():
+    """Which path the device WFA's pass 1 takes on one record: "native"
+    (`native.wfa_windows` finds its window) or "python"."""
+    from hiphase_tpu_torch.utils.simulate import make_read_raw
+    raw = make_read_raw(b"r", 0, 100, np.frombuffer(b"ACGTA" * 40, np.uint8),
+                        [("S", 5), ("M", 195)], 30, 0, b"")
+    out = native.wfa_windows([(np.frombuffer(raw, np.uint8), np.array([0]),
+                               np.array([len(raw)]))], np.array([150]))
+    if out is None:
+        return "python"
+    assert out[0].tolist() == [True] and (out[1][0], out[2][0]) == (100, 295)
+    return "native"
+
+
+PATHS = {"sweep": _sweep_path, "pack": _pack_path, "windows": _windows_path}
 # what the warning says of each Python path
 FALLBACK = {"sweep": "the estimated-cost sweep runs in Python",
-            "pack": "windows are built and linearised in Python"}
+            "pack": "windows are built and linearised in Python",
+            "windows": "pass 1 finds each read's window in Python"}
 
 
-@pytest.mark.parametrize("twin", ["sweep", "pack"])
+@pytest.mark.parametrize("twin", ["sweep", "pack", "windows"])
 @pytest.mark.parametrize("host", ["committed", "built"])
 def test_loader_binds_the_port_library_with_the_host_library(
         libraries, fresh_loader, tmp_path, monkeypatch, host, twin):
@@ -253,7 +269,7 @@ def test_loader_binds_the_port_library_with_the_host_library(
     assert PATHS[twin]() == "native"
 
 
-@pytest.mark.parametrize("twin", ["sweep", "pack"])
+@pytest.mark.parametrize("twin", ["sweep", "pack", "windows"])
 def test_failed_port_build_leaves_the_python_paths_with_one_warning(
         fresh_loader, monkeypatch, caplog, twin):
     def refuse(*_a, **_kw):
@@ -271,8 +287,8 @@ def test_failed_port_build_leaves_the_python_paths_with_one_warning(
     assert native.PORT_LOADED["path"] is None
 
 
-@pytest.mark.parametrize("edited", ["astar_sweep.cc", "wfa_pack.cc",
-                                    "wfa_build.h"])
+@pytest.mark.parametrize("edited", ["astar_sweep.cc", "wfa_windows.cc",
+                                    "wfa_pack.cc", "wfa_build.h"])
 def test_port_library_is_reused_by_hash(tmp_path, monkeypatch, edited):
     """The port's library builds once into the build directory and is found
     by the hash of its sources and of the graph builder's header: an edit

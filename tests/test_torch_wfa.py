@@ -167,7 +167,8 @@ def test_align_reads_device_equals_jax_across_the_ladder():
         "reads": 4, "certified": {"32": 2, "128": 1}, "uncertified": 1,
         "band_calls": 3, "pairs_per_launch": 7 / 3,
         "max_pairs_per_launch": 4, "h2d_copies": 0,
-        "windows": {"native": 0, "python": 1}}
+        "windows": {"native": 0, "python": 1},
+        "pass1": {"native": 0, "python": 0}}
 
 
 def _ragged_pairs():

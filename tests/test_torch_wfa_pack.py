@@ -63,9 +63,11 @@ def _checking_ladder(seen):
         batch = make_batch()
         n = batch.n
         assert packed.native.all()
+        reads = [packed.read_blob[lo:hi].tobytes() for lo, hi in
+                 zip(packed.read_off[:-1], packed.read_off[1:])]
         want = wfa_device.PairBatch(
             [wfa_device._linearized(packed.window(k)[1]) for k in range(n)],
-            packed.read_align, list(range(n)))
+            reads, list(range(n)))
         _assert_same_batch(batch, want)
         for k in range(n):
             assert _triples_of(packed, k) == packed.window(k)[2], k
@@ -140,7 +142,8 @@ def _packed_windows(pack, ref, hets, homs, windows, reads):
 
     spans = [(reads[k], s, e - 1, h0, h1, m0, m1)
              for k, (s, e, h0, h1, m0, m1) in enumerate(windows)]
-    return gr._PackedWindows(pack, ref, spans, python_window), python_window
+    return (gr._PackedWindows(pack, ref, *gr._window_arrays(spans),
+                              python_window), python_window)
 
 
 def test_window_over_capacity_takes_the_python_path():
